@@ -19,18 +19,13 @@ MODULES = [
     ("godsp_tpu.dsputils", "L0 primitives: conversion, padding, predicates, comparison, Matrix."),
     ("godsp_tpu.window", "L0 tapers: the reference's six windows plus table caching."),
     ("godsp_tpu.fft", "L1 transforms: FFT/IFFT (1-D/2-D/N-D, real/complex), convolve, DCT."),
-    ("godsp_tpu.fft.large", "Large-N (32768..2^28) four-step over the Pallas kernel."),
     ("godsp_tpu.spectral", "L2 spectral analysis: Welch PSD, CSD, coherence, periodogram."),
     ("godsp_tpu.wav", "RIFF/WAVE I/O with the reference's normalization quirks."),
     ("godsp_tpu.models", "Pipelines: STFT/ISTFT, spectrogram, mel/MFCC, filtering, resampling."),
-    ("godsp_tpu.parallel", "Device-mesh parallelism: sharded/streaming Pwelch, TP FFT, halos."),
-    ("godsp_tpu.ops.pallas_fft", "Fused batched FFT kernel (split-complex planes, digit order)."),
-    ("godsp_tpu.ops.pallas_pwelch", "Fused Welch-periodogram kernel and framing geometry."),
-    ("godsp_tpu.ops.pallas_stft", "Fused STFT/spectrogram/mel kernel."),
-    ("godsp_tpu.ops.pallas_csd", "Fused cross-spectral kernel."),
-    ("godsp_tpu.parallel.fused_halo", "Pwelch kernel with in-kernel cross-shard halo RDMA."),
+    ("godsp_tpu.parallel", "Device-mesh parallelism: sharded/streaming Pwelch, TP FFT, ppermute halos."),
     ("godsp_tpu.native", "C++ host ops (decode, framing, stream FIFO) with numpy fallbacks."),
-    ("godsp_tpu.utils", "Profiling, metrics/roofline, device<->host transfer helpers."),
+    ("godsp_tpu.utils", "Profiling, metrics/roofline, compile cache, device<->host transfer helpers."),
+    ("godsp_tpu.utils.oracles", "Float64 numpy reference oracles (Welch, multi-tone spectrum)."),
 ]
 
 

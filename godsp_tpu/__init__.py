@@ -1,20 +1,19 @@
-"""godsp_tpu — a TPU-native DSP framework.
+"""godsp_tpu — a DSP framework on JAX/XLA for NVIDIA GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design with the full capability surface
-of the go-dsp reference library (FFT, spectral analysis, window tapers,
-WAV ingest), built for TPU hardware: batched fused kernels, device-mesh
-sharding, and streaming multi-host Welch PSD.
+A from-scratch JAX/XLA re-design with the full capability surface of the
+go-dsp reference library (FFT, spectral analysis, window tapers, WAV
+ingest), built for accelerators: batched transforms compiled by XLA,
+device-mesh sharding, and streaming multi-process Welch PSD.
 
 Packages:
   dsputils  — L0 primitives: conversion, padding, segmentation, compare
   window    — symmetric window tapers
-  fft       — 1-D/2-D/N-D FFT, Stockham + Bluestein kernels, convolution
-  spectral  — Welch PSD
+  fft       — 1-D/2-D/N-D FFT (four-step matmul, Bluestein), convolution
+  spectral  — Welch PSD, CSD, scipy-convention estimators
   wav       — RIFF/WAVE streaming ingest
-  ops       — Pallas TPU kernels (fused FFT, windowed periodogram)
   parallel  — mesh sharding, halo exchange, distributed/streaming Pwelch
-  models    — end-to-end pipelines (Pwelch, STFT/spectrogram)
-  utils     — metrics, profiling, roofline helpers
+  models    — end-to-end pipelines (STFT/spectrogram, mel, filters)
+  utils     — metrics, profiling, compile cache, float64 oracles
 """
 
 __version__ = "0.1.0"

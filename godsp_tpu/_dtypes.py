@@ -1,13 +1,14 @@
-"""Dtype policy for the TPU-native DSP framework.
+"""Dtype policy for the DSP framework.
 
 The reference library computes everything in float64/complex128 on CPU
-(go-dsp dsputils/dsputils.go:25, fft/fft.go:25).  On TPU, float64 is
-emulated and slow, while float32/complex64 clears the 120 dB SNR parity
-bound for the supported transform sizes (error ~ eps * sqrt(log2 N)).
+(go-dsp dsputils/dsputils.go:25, fft/fft.go:25).  On a GPU, float64 runs
+at a small fraction of the float32 rate, while float32/complex64 clears
+the 120 dB SNR parity bound for the supported transform sizes (error ~
+eps * sqrt(log2 N)).
 
 Policy:
   * default real dtype   = float64 when jax_enable_x64 is on (CPU parity
-    tests), float32 otherwise (TPU fast path);
+    tests), float32 otherwise (the accelerator's fast path);
   * complex dtype follows the real dtype (complex128 / complex64);
   * every public function accepts any real/complex input and promotes it
     to the policy dtype, so user code is dtype-agnostic.
@@ -84,29 +85,11 @@ def as_real_array(x) -> jax.Array:
     return x
 
 
-@jax.jit
-def _combine_planes(re, im):
-    return jax.lax.complex(re, im)
-
-
 def put(x) -> jax.Array:
-    """Move input to the default device, safely for complex dtypes.
-
-    Some TPU transports cannot transfer complex buffers in either
-    direction; host complex data is split into real/imaginary planes,
-    transferred as floats, and recombined on device.  Device arrays and
-    real host data pass through jnp.asarray.  Every public entry point
-    routes its inputs through here (see also utils.to_host for the
-    device->host direction).
-    """
-    if isinstance(x, jax.Array):
-        return x
-    x = np.asarray(x)
-    if x.dtype.kind == "c":
-        rdt = np.float64 if (x.dtype == np.complex128 and jax.config.jax_enable_x64) else np.float32
-        re = jnp.asarray(np.ascontiguousarray(x.real).astype(rdt, copy=False))
-        im = jnp.asarray(np.ascontiguousarray(x.imag).astype(rdt, copy=False))
-        return _combine_planes(re, im)
+    """Move input to the default device: a plain jnp.asarray, kept as
+    the one named entry point that every public function routes its
+    inputs through (see also utils.to_host for the device->host
+    direction).  Device arrays pass through unchanged."""
     return jnp.asarray(x)
 
 

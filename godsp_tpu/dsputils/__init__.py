@@ -1,7 +1,6 @@
 """L0 primitives: conversion, padding, predicates, comparison, Matrix.
 
-TPU-native counterpart of the reference dsputils package
-(/root/reference/dsputils/).
+Counterpart of the reference dsputils package (go-dsp dsputils/).
 """
 
 from godsp_tpu.dsputils.compare import (

@@ -1,8 +1,8 @@
 """N-D Matrix container (reference dsputils/matrix.go:21-216).
 
 The reference wraps a flat []complex128 with row-major strides so lanes
-along any axis can be gathered/scattered one at a time.  In the TPU build
-this is a HOST-side container (numpy-backed): scalar/lane mutation happens
+along any axis can be gathered/scattered one at a time.  Here this is a
+HOST-side container (numpy-backed): scalar/lane mutation happens
 on the host, and the transforms (godsp_tpu.fft.fftn) move `array` to the
 device once and run batched, transposed passes instead of per-lane
 gathers.  Keeping mutation on the host avoids eager device scatter ops and

@@ -1,6 +1,6 @@
 """L0 primitives: conversion, padding, predicates, segmentation.
 
-TPU-native re-design of the reference dsputils package
+Re-design of the reference dsputils package
 (reference: dsputils/dsputils.go:25-115).  Predicates and segment
 geometry are host-side Python (they feed static shapes into jit);
 array ops are jnp and batch over leading axes.

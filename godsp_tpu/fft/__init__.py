@@ -1,8 +1,9 @@
 """L1 transforms: FFT/IFFT (1-D/2-D/N-D, real/complex), convolution.
 
-TPU-native counterpart of the reference fft package (/root/reference/fft/).
-Kernels: Stockham autosort radix-2 (stockham.py) and Bluestein chirp-z
-(bluestein.py); fused Pallas TPU kernels live in godsp_tpu.ops.
+Counterpart of the reference fft package (go-dsp fft/).  Power-of-2
+sizes take the four-step matmul formulation (four_step.py, dispatched by
+pow2.py); other sizes take Bluestein chirp-z (bluestein.py).  The
+Stockham radix-2 kernel (stockham.py) stays as an independent oracle.
 """
 
 from godsp_tpu.fft.bluestein import bluestein_fft
@@ -25,23 +26,9 @@ from godsp_tpu.fft.core import (
 )
 from godsp_tpu.fft.four_step import four_step_fft
 from godsp_tpu.fft.helpers import fftfreq, fftshift, hilbert, ifftshift, rfftfreq, hfft, hfft2, hfftn, ihfft, ihfft2, ihfftn, irfft, irfft2, irfftn, next_fast_len, prev_fast_len, rfft, rfft2, rfftn
-from godsp_tpu.fft.large import set_large_min
-from godsp_tpu.fft.pow2 import pallas_enabled, pow2_fft, set_pallas_enabled
+from godsp_tpu.fft.pow2 import pow2_fft
 from godsp_tpu.fft.split import fft_split, ifft_split, rfft_split
 from godsp_tpu.fft.stockham import stockham_fft, twiddles
-
-
-def set_natural_fused(on: bool) -> None:
-    """Toggle in-kernel natural-order emission (ops.pallas_fft).
-
-    Re-exported lazily: the rest of this package imports the pallas stack
-    inside function bodies, and an eager module-level import here would
-    pull jax.experimental.pallas (and godsp_tpu.ops) in while this module
-    is mid-initialization.
-    """
-    from godsp_tpu.ops.pallas_fft import set_natural_fused as _impl
-
-    _impl(on)
 
 __all__ = [
     "bluestein_fft",
@@ -95,11 +82,7 @@ __all__ = [
     "ifft_real",
     "ifht",
     "ifftn",
-    "pallas_enabled",
     "pow2_fft",
-    "set_large_min",
-    "set_natural_fused",
-    "set_pallas_enabled",
     "stockham_fft",
     "twiddles",
     "zoom_fft",

@@ -5,7 +5,7 @@ conventions) expressed through the framework's complex FFT: DCT-II by
 Makhoul's same-length reorder+phase, DCT-I/DST-I by symmetric/odd
 extensions, DCT-IV by a zero-padded 2N FFT with phase twists, and the
 DST types by the alternating-sign/reversal relations to their DCT
-twins — so power-of-2 sizes ride the Pallas kernel and other sizes
+twins — so power-of-2 sizes take the four-step path and other sizes
 Bluestein, with no new kernel code.
 
   DCT-II:  y[k] = 2 * sum_n x[n] cos(pi k (2n+1) / (2N))

@@ -1,6 +1,6 @@
 """Public FFT API: dispatch, inverse, convolution, 2-D/N-D drivers.
 
-TPU-native counterpart of reference fft/fft.go.  Semantics preserved:
+Counterpart of reference fft/fft.go.  Semantics preserved:
 
   * dispatch by length: <=1 copy-through, power-of-2 radix path, else
     Bluestein (fft.go:72-87);
@@ -24,7 +24,7 @@ from typing import Sequence, Union
 import jax
 import jax.numpy as jnp
 
-from godsp_tpu._dtypes import as_complex_array, complex_for, put
+from godsp_tpu._dtypes import as_complex_array, put
 from godsp_tpu.dsputils.matrix import Matrix
 from godsp_tpu.dsputils.utils import is_power_of_2
 from godsp_tpu.fft.bluestein import bluestein_fft
@@ -48,11 +48,8 @@ __all__ = [
 
 
 # The whole transform compiles into one XLA computation per
-# (shape, dtype) via jit — required on TPU, where eager op-by-op dispatch
-# of complex slices is not supported, and faster everywhere.  The thin
-# public wrappers route host inputs through put(), which moves complex
-# data as split real planes (some TPU transports cannot transfer complex
-# buffers at all).
+# (shape, dtype) via jit.  The thin public wrappers move host inputs to
+# the device with put().
 
 
 @partial(jax.jit, static_argnames=("axis",))
@@ -68,7 +65,7 @@ def fft(x, axis: int = -1) -> jax.Array:
     """Forward DFT along `axis` (default trailing), batched over the rest.
 
     Dispatch mirrors fft.FFT (fft.go:72-87): length <= 1 is returned
-    as-is, power-of-2 lengths take the radix-2 (Stockham) kernel,
+    as-is, power-of-2 lengths take the power-of-2 path (fft/pow2.py),
     everything else takes Bluestein.
     """
     return _fft_jit(put(x), axis=axis)
@@ -79,8 +76,7 @@ def _fft_last(x: jax.Array) -> jax.Array:
     if n <= 1:
         return x
     if is_power_of_2(n):
-        # Pallas fused kernel on TPU for supported sizes, else the
-        # four-step MXU path (fft/pow2.py dispatch); the Stockham kernel
+        # The four-step path (fft/pow2.py dispatch); the Stockham kernel
         # remains available as an independent oracle (fft/stockham.py).
         return pow2_fft(x)
     return bluestein_fft(x)
@@ -111,46 +107,19 @@ def ifft(x, axis: int = -1) -> jax.Array:
     return _ifft_jit(put(x), axis=axis)
 
 
-@partial(jax.jit, static_argnames=("axis",))
-def _fft_real_jit(x, axis: int) -> jax.Array:
-    from godsp_tpu.fft.pow2 import _pallas_eligible
-    from godsp_tpu._dtypes import complex_for
-
-    n = x.shape[axis]
-    if (
-        x.dtype.kind == "f"
-        and n > 1
-        and is_power_of_2(n)
-        and _pallas_eligible(complex_for(x.dtype), n)
-    ):
-        # Real-input kernel path: the imag plane is neither transferred
-        # nor multiplied (step 1 halves in the kernel).
-        from godsp_tpu.ops.pallas_fft import fft_pow2_split
-
-        if axis not in (-1, x.ndim - 1):
-            x = jnp.moveaxis(x, axis, -1)
-            yr, yi = fft_pow2_split(x, None)
-            return jnp.moveaxis(jax.lax.complex(yr, yi), -1, axis)
-        yr, yi = fft_pow2_split(x, None)
-        return jax.lax.complex(yr, yi)
-    return _fft_jit(x, axis=axis)
-
-
 def fft_real(x, axis: int = -1) -> jax.Array:
     """FFT of real input; returns the full N-bin complex spectrum
     (fft.go:25-27).  The real->complex lift happens inside the jitted
-    transform; on TPU, power-of-2 sizes take the real-input Pallas
-    kernel (no imag plane in HBM, half the step-1 contraction)."""
-    return _fft_real_jit(put(x), axis=axis)
+    transform."""
+    return _fft_jit(put(x), axis=axis)
 
 
 @partial(jax.jit, static_argnames=("axis",))
 def _ifft_real_jit(x, axis: int) -> jax.Array:
     n = x.shape[axis]
     if x.dtype.kind == "f" and n > 1:
-        # For real x: IFFT(x) = conj(FFT(x))/n — rides the real-input
-        # kernel path with no index-reversal passes.
-        return jnp.conj(_fft_real_jit(x, axis)) / n
+        # For real x: IFFT(x) = conj(FFT(x))/n — no index-reversal passes.
+        return jnp.conj(_fft_jit(x, axis=axis)) / n
     return _ifft_jit(x, axis=axis)
 
 
@@ -167,9 +136,8 @@ def _convolve_impl(x, y):
     y = as_complex_array(y)
     n = x.shape[-1]
     if n > 1 and is_power_of_2(n):
-        # Power-of-2: single fused chain (on TPU: forward transforms in
-        # kernel digit order, digit-consuming inverse with 1/N folded
-        # into its tables — zero reorders, zero extra passes).
+        # Power-of-2: one chain of forward, multiply, inverse with the
+        # 1/N folded in.
         return pow2_convolve(x, y, scale=1.0 / n)
     return ifft(fft(x) * fft(y))
 
@@ -189,7 +157,7 @@ def convolve(x, y) -> jax.Array:
 
 # ---------------------------------------------------------------------------
 # 2-D / N-D drivers.  The reference gathers one lane at a time through a
-# strided odometer (fft.go:123-154, 166-224); on TPU the same math is a
+# strided odometer (fft.go:123-154, 166-224); here the same math is a
 # transpose-to-minor-axis + batched 1-D transform per axis.
 # ---------------------------------------------------------------------------
 

@@ -1,15 +1,10 @@
-"""Power-of-2 FFT dispatcher: Pallas TPU kernel or pure-XLA four-step.
+"""Power-of-2 FFT dispatcher.
 
 The single choke point every power-of-2 transform in the framework goes
 through (public fft/ifft dispatch, Convolve, and Bluestein's internal
-convolution).  On TPU, complex64 transforms of kernel-supported sizes
-take the fused Pallas kernel (ops.pallas_fft — one HBM read + write per
-element, MXU contractions); everything else takes the four-step XLA
-formulation (fft/four_step.py), which is also the correctness oracle.
-
-The reference's only tuning knob is a worker-pool size (fft/fft.go:89-101);
-the analogous knob here is `set_pallas_enabled`, mainly for debugging and
-A/B benchmarking.
+convolution).  Every transform takes the four-step formulation
+(fft/four_step.py): batched complex matrix products at
+Precision.HIGHEST, which XLA hands to the GPU's BLAS library.
 """
 
 from __future__ import annotations
@@ -19,163 +14,35 @@ import jax.numpy as jnp
 
 from godsp_tpu.fft.four_step import four_step_fft
 
-__all__ = ["pow2_convolve2", "pow2_fft", "set_pallas_enabled", "pallas_enabled"]
-
-_pallas_on = True
-
-
-def set_pallas_enabled(on: bool) -> None:
-    """Enable/disable the Pallas kernel path globally (default on)."""
-    global _pallas_on
-    _pallas_on = bool(on)
-
-
-def pallas_enabled() -> bool:
-    return _pallas_on
-
-
-def _pallas_eligible(dtype, n: int) -> bool:
-    from godsp_tpu.ops.pallas_fft import supported_size
-
-    return (
-        _pallas_on
-        and jnp.dtype(dtype) == jnp.complex64
-        and supported_size(n)
-        and jax.default_backend() == "tpu"
-    )
-
-
-def _large_eligible(dtype, n: int) -> bool:
-    from godsp_tpu.fft.large import large_supported
-
-    return (
-        _pallas_on
-        and jnp.dtype(dtype) == jnp.complex64
-        and large_supported(n)
-        and jax.default_backend() == "tpu"
-    )
+__all__ = ["pow2_convolve2", "pow2_fft"]
 
 
 def pow2_fft(x: jax.Array, inverse: bool = False) -> jax.Array:
-    """Unnormalized DFT of the trailing power-of-2 axis, batched.
-
-    Dispatch is trace-time static (backend, dtype, size), so each distinct
-    configuration compiles once.
-    """
-    n = x.shape[-1]
-    if n <= 1:
+    """Unnormalized DFT of the trailing power-of-2 axis, batched."""
+    if x.shape[-1] <= 1:
         return x
-    # Large-split first: disjoint from the kernel by default
-    # (_MIN_N > kernel max), but set_large_min(16384) reroutes the
-    # kernel's slowest size through lane-slice rows (chip A/B).
-    if _large_eligible(x.dtype, n):
-        from godsp_tpu.fft.large import fft_large
-
-        return fft_large(x, inverse)
-    if _pallas_eligible(x.dtype, n):
-        from godsp_tpu.ops.pallas_fft import fft_pow2_split
-
-        # Same natural-order path as the planes-native fft_split (the
-        # in-kernel MXU emission at n1 <= 8, digit + f32-plane transpose
-        # above), plus the complex pack.  An earlier round-4 variant ran
-        # the digit kernel and applied digit_to_natural during the
-        # recombination expecting XLA to fuse the transpose into the
-        # pack; chip-measured it did NOT (public fft 1.299 ms vs
-        # fft_split 0.677 + a ~free conversion roundtrip — two extra
-        # passes), so the natural-order kernel path is restored.
-        yr, yi = fft_pow2_split(
-            jnp.real(x), jnp.imag(x), inverse=inverse, order="natural"
-        )
-        return jax.lax.complex(yr, yi)
     return four_step_fft(x, inverse)
 
 
 def pow2_circular_filter(x: jax.Array, h: jax.Array, scale: float = 1.0) -> jax.Array:
     """scale * IDFT(DFT(x) * h_freq): the Convolve/Bluestein core.
-    scale (e.g. 1/N) folds into the inverse kernel's tables for free.
 
-    h: the frequency response in NATURAL bin order (same trailing length
-    as x; broadcastable leading dims).  On the Pallas path the whole
-    chain runs in the kernel's digit order — forward (digit out),
-    pointwise multiply, digit-consuming inverse — with ZERO reorder
-    transposes (h is permuted once at trace time when constant, or with
-    one cheap XLA reorder otherwise).  Caller scales by 1/N.
+    h: the frequency response in natural bin order (same trailing length
+    as x; broadcastable leading dims).  scale (e.g. 1/N) is folded into
+    the response before the inverse.
     """
-    n = x.shape[-1]
-    if _pallas_eligible(x.dtype, n):
-        from godsp_tpu.ops.pallas_fft import (
-            fft_pow2_split,
-            ifft_pow2_digit_split,
-            natural_to_digit,
-        )
-
-        # natural -> the kernel's digit layout for this size (the
-        # split-digit form at n=16384; k1*128+k2 <-> k1+n1*k2 below).
-        hd = natural_to_digit(h, n)
-        xr, xi = fft_pow2_split(jnp.real(x), jnp.imag(x), order="digit")
-        hr, hi = jnp.real(hd), jnp.imag(hd)
-        pr = xr * hr - xi * hi
-        pi = xr * hi + xi * hr
-        zr, zi = ifft_pow2_digit_split(pr, pi, scale=scale)
-        return jax.lax.complex(zr, zi)
     return pow2_fft(pow2_fft(x) * (h * scale), inverse=True)
 
 
 def pow2_convolve(x: jax.Array, y: jax.Array, scale: float = 1.0) -> jax.Array:
-    """scale * IDFT(DFT(x) * DFT(y)); scale=1/N folds the normalized
-    inverse into the kernel tables (no extra pass).
-
-    On the Pallas path BOTH forward transforms emit digit order and the
-    inverse consumes it — no reorder transposes anywhere in the chain.
-    """
-    n = x.shape[-1]
-    if _pallas_eligible(x.dtype, n):
-        from godsp_tpu.ops.pallas_fft import (
-            fft_pow2_split,
-            ifft_pow2_digit_split,
-        )
-
-        xr, xi = fft_pow2_split(jnp.real(x), jnp.imag(x), order="digit")
-        yr, yi = fft_pow2_split(jnp.real(y), jnp.imag(y), order="digit")
-        pr = xr * yr - xi * yi
-        pi = xr * yi + xi * yr
-        zr, zi = ifft_pow2_digit_split(pr, pi, scale=scale)
-        return jax.lax.complex(zr, zi)
-    return pow2_fft(pow2_fft(x) * pow2_fft(y), inverse=True) * (
-        scale if scale != 1.0 else 1
-    )
+    """scale * IDFT(DFT(x) * DFT(y)) over the trailing power-of-2 axis."""
+    out = pow2_fft(pow2_fft(x) * pow2_fft(y), inverse=True)
+    return out * scale if scale != 1.0 else out
 
 
 def pow2_convolve2(x: jax.Array, y: jax.Array, scale: float = 1.0) -> jax.Array:
     """2-D circular convolution scale * IDFT2(DFT2(x) * DFT2(y)) over the
-    two trailing (power-of-2) axes, batched over leading axes.
-
-    On the Pallas path each separable pass stays in the kernel's digit
-    order (forward digit-out along both axes, pointwise multiply in the
-    doubly-digit layout, digit-consuming inverses) — the only data
-    movement between passes is the unavoidable axis swap of the
-    separable 2-D FFT, and scale folds into the first inverse's tables.
-    """
-    n1, n2 = x.shape[-2], x.shape[-1]
-    if _pallas_eligible(x.dtype, n2) and _pallas_eligible(x.dtype, n1):
-        from godsp_tpu.ops.pallas_fft import (
-            fft_pow2_split,
-            ifft_pow2_digit_split,
-        )
-
-        def fwd2(c):
-            r, i = fft_pow2_split(jnp.real(c), jnp.imag(c), order="digit")
-            r, i = r.swapaxes(-1, -2), i.swapaxes(-1, -2)
-            return fft_pow2_split(r, i, order="digit")  # (..., n2d, n1d)
-
-        xr, xi = fwd2(x)
-        yr, yi = fwd2(y)
-        pr = xr * yr - xi * yi
-        pi = xr * yi + xi * yr
-        zr, zi = ifft_pow2_digit_split(pr, pi, scale=scale)  # n1 natural
-        zr, zi = zr.swapaxes(-1, -2), zi.swapaxes(-1, -2)
-        zr, zi = ifft_pow2_digit_split(zr, zi, scale=1.0)  # n2 natural
-        return jax.lax.complex(zr, zi)
+    two trailing (power-of-2) axes, batched over leading axes."""
 
     def f2(c, inverse):
         c = pow2_fft(c, inverse=inverse)

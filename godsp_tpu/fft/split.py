@@ -1,16 +1,9 @@
-"""Split-complex public FFT: the framework's NATIVE device format.
+"""Split-complex public FFT: transforms over separate (re, im) planes.
 
-On this class of TPU transport, complex buffers cannot cross the
-host<->device boundary at all (see _dtypes.put) and Pallas has no
-complex dtype — so split (re, im) float32 planes are the real production
-interface, and the complex-array API (fft/core.py) is the compatibility
-layer on top.  These wrappers give users the conversion-free path:
-power-of-2 sizes run the Pallas kernel (or the large-N kernel four-step)
-end-to-end on planes, paying only the digit->natural reorder; other
-sizes fall back through the complex dispatch.
-
-The inverse's 1/N (the reference's convention, fft.go:47-50) is FOLDED
-into the kernel's contraction tables — no extra normalization pass.
+Many DSP pipelines keep real and imaginary parts as two float arrays.
+These wrappers take and return such planes and run the same complex
+dispatch as fft/core.py; the inverse's 1/N is the reference's
+convention (fft.go:47-50).
 """
 
 from __future__ import annotations
@@ -18,108 +11,50 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from godsp_tpu.dsputils.utils import is_power_of_2
-
 __all__ = ["fft_split", "ifft_split", "rfft_split"]
-
-
-def _dispatch(xr, xi, inverse: bool, scale: float):
-    """xi may be None (real input): the kernel path then skips the imag
-    plane entirely (neither read nor multiplied)."""
-    from godsp_tpu.fft.large import fft_large_split
-    from godsp_tpu.fft.pow2 import _large_eligible, _pallas_eligible
-    from godsp_tpu.ops.pallas_fft import fft_pow2_split
-
-    n = xr.shape[-1]
-    # Kernel paths are float32-only: wider planes (the CPU x64 parity
-    # mode) must keep their precision through the complex fallback, not
-    # be silently downcast.
-    f32 = jnp.dtype(xr.dtype) == jnp.float32
-    if f32 and _pallas_eligible(jnp.complex64, n) and not _large_eligible(
-        jnp.complex64, n
-    ):
-        return fft_pow2_split(xr, xi, inverse=inverse, scale=scale)
-    if xi is None:
-        xi = jnp.zeros_like(xr)
-    if f32 and _large_eligible(jnp.complex64, n):
-        yr, yi = fft_large_split(xr, xi, inverse=inverse)
-        if scale != 1.0:
-            s = jnp.asarray(scale, dtype=yr.dtype)
-            yr, yi = yr * s, yi * s
-        return yr, yi
-    # Fallback through the complex dispatch (CPU, non-pow-2 Bluestein...).
-    from godsp_tpu.fft.core import fft as cfft
-
-    z = jax.lax.complex(xr, xi)
-    Z = cfft(z) if not inverse else None
-    if inverse:
-        from godsp_tpu.fft.core import ifft as cifft
-
-        Z = cifft(z)  # applies 1/N itself
-        return jnp.real(Z), jnp.imag(Z)
-    if scale != 1.0:
-        Z = Z * jnp.asarray(scale, dtype=jnp.float32)
-    return jnp.real(Z), jnp.imag(Z)
 
 
 def fft_split(xr, xi=None):
     """Natural-order forward DFT over split planes (..., N) -> (yr, yi).
 
-    xi=None means a real input (the imag plane is neither transferred
-    nor multiplied on the kernel path).  Matches fft.fft on
-    lax.complex(xr, xi) bin for bin; zero complex<->plane conversions on
-    the TPU power-of-2 path.
+    xi=None means a real input.  Matches fft.fft on lax.complex(xr, xi)
+    bin for bin.
     """
+    from godsp_tpu.fft.core import fft as cfft
+
     xr = jnp.asarray(xr)
     if xi is not None:
         xi = jnp.asarray(xi)
         if xr.shape != xi.shape:
             raise ValueError("re/im planes must have identical shapes")
-    n = xr.shape[-1]
-    if n <= 1:
+    if xr.shape[-1] <= 1:
         return xr, (jnp.zeros_like(xr) if xi is None else xi)
-    return _dispatch(xr, xi, inverse=False, scale=1.0)
+    z = cfft(xr if xi is None else jax.lax.complex(xr, xi))
+    return jnp.real(z), jnp.imag(z)
 
 
 def ifft_split(yr, yi):
     """Normalized inverse DFT over split planes: fft.ifft semantics
-    (1/N on the inverse, fft.go:47-50), with the 1/N folded into the
-    kernel tables on the TPU power-of-2 path."""
+    (1/N on the inverse, fft.go:47-50)."""
+    from godsp_tpu.fft.core import ifft as cifft
+
     yr = jnp.asarray(yr)
     yi = jnp.asarray(yi)
     if yr.shape != yi.shape:
         raise ValueError("re/im planes must have identical shapes")
-    n = yr.shape[-1]
-    if n <= 1:
+    if yr.shape[-1] <= 1:
         return yr, yi
-    if is_power_of_2(n):
-        return _dispatch(yr, yi, inverse=True, scale=1.0 / n)
-    return _dispatch(yr, yi, inverse=True, scale=1.0)
+    z = cifft(jax.lax.complex(yr, yi))
+    return jnp.real(z), jnp.imag(z)
 
 
 def rfft_split(xr):
     """One-sided forward DFT of a REAL plane (..., N) -> (yr, yi) planes
-    of shape (..., N//2 + 1), numpy.fft.rfft bin layout.
-
-    The conversion-free real-input hot path (FFTReal, fft/fft.go:25-32):
-    power-of-2 sizes 256..8192 run the Hermitian-packed Pallas kernel
-    (ops.pallas_fft.rfft_pow2_split — half the complex kernel's HBM
-    traffic and half its MXU stream); everything else falls back to the
-    full transform's first N//2+1 bins.
-    """
-    import jax.numpy as jnp
-
-    from godsp_tpu.ops.pallas_fft import rfft_pow2_split, rfft_supported_size
-
+    of shape (..., N//2 + 1), numpy.fft.rfft bin layout: the first
+    N//2 + 1 bins of the full transform (FFTReal, fft/fft.go:25-32)."""
     xr = jnp.asarray(xr)
     n = xr.shape[-1]
     if n <= 1:
         return xr, jnp.zeros_like(xr)
-    f32 = jnp.dtype(xr.dtype) == jnp.float32
-    if f32 and rfft_supported_size(n):
-        import jax
-
-        if jax.default_backend() == "tpu":
-            return rfft_pow2_split(xr)
     yr, yi = fft_split(xr, None)
     return yr[..., : n // 2 + 1], yi[..., : n // 2 + 1]

@@ -1,16 +1,16 @@
 """Stockham autosort radix-2 FFT, pure JAX, batched over leading axes.
 
-TPU-first replacement for the reference's bit-reversal decimation-in-time
+Vectorized replacement for the reference's bit-reversal decimation-in-time
 kernel (fft/radix2.go:80-153).  Bit-reversal reordering is a scatter —
-hostile to the 8x128 vector layout — so this uses the self-sorting
+hostile to wide vector layouts — so this uses the self-sorting
 Stockham formulation instead: log2(N) stages of slice / butterfly /
 concatenate, all unit-stride, with the inter-stage "transpose" folded into
 the concatenate.  Output is in natural order with no reorder pass.
 
 The goroutine worker pool + per-stage WaitGroup barrier of the reference
 (radix2.go:89-151) maps to: vectorization across the batch axes inside one
-XLA computation (intra-chip), and mesh sharding of the batch axis
-(cross-chip, see godsp_tpu.parallel).
+XLA computation (intra-device), and mesh sharding of the batch axis
+(cross-device, see godsp_tpu.parallel).
 
 Twiddle factors are generated host-side in float64 once per (N, sign) and
 cached — the analogue of the reference's RWMutex-guarded lazy table
@@ -63,9 +63,8 @@ def stockham_fft(x: jax.Array, inverse: bool = False) -> jax.Array:
     scale lives in the public ifft, matching fft/fft.go:47-50).
 
     Runs TIME-MAJOR internally: the stage state is (L, M*B) with the
-    batch minor, so every butterfly keeps a large trailing dimension and
-    maps onto the TPU's 8x128 vector layout (the batch-major arrangement
-    measures ~10x slower on a v5e).
+    batch minor, so every butterfly keeps a large contiguous trailing
+    dimension.
     """
     n = x.shape[-1]
     if n & (n - 1):

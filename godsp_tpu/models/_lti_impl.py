@@ -9,7 +9,7 @@ implemented from the textbook formulations:
 
 - conversions and discretization are trace-time host float64 (like the
   design kit, models/design.py) — coefficient math, not compute;
-- simulation is TPU-first: the linear recurrence x_{k+1} = M x_k + v_k
+- simulation is parallel-first: the linear recurrence x_{k+1} = M x_k + v_k
   runs as ONE jax.lax.associative_scan over (matrix, offset) pairs, so
   a T-step simulation is log-depth on device instead of a length-T
   sequential loop (states are small; the scan's batched n x n matmuls
@@ -250,12 +250,12 @@ def _affine_scan_jit(E, V, x0):
     the transition matrix is carried as its deviation E from the
     identity, composed as (I+E2)(I+E1) = I + (E1 + E2 + E2 E1).
 
-    Why (chip-measured, round 5): for small dt the discretized Ad ~ I,
-    and storing Ad directly throws away the increment's relative
-    precision in f32 — the direct form measured 102 dB (CPU f32) and
-    14 dB (chip, where DEFAULT-precision f32 matmuls run as bf16) vs
-    scipy f64 over 2001 steps; residual form + HIGHEST measures
-    ~132 dB.  HIGHEST costs nothing here (n x n states are tiny)."""
+    Why: for small dt the discretized Ad ~ I, and storing Ad directly
+    throws away the increment's relative precision in f32 — the direct
+    form measured 102 dB (CPU f32) vs scipy f64 over 2001 steps, and
+    less where a default-precision f32 matmul rounds its operands (TF32
+    on a GPU); residual form + HIGHEST keeps full f32.  HIGHEST costs
+    nothing here (n x n states are tiny)."""
     K = V.shape[0]
     hi = jax.lax.Precision.HIGHEST
     mm = lambda a, b: jnp.matmul(a, b, precision=hi)

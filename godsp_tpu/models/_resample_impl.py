@@ -2,7 +2,7 @@
 
 `resample` transforms, truncates/zero-pads the spectrum (Nyquist bin
 split handled exactly as scipy does), and inverse transforms — all
-through the framework's FFT kernels, so power-of-2 lengths ride Pallas.
+through the framework's FFT dispatch (four-step for power-of-2 lengths).
 
 `resample_poly`/`upfirdn` do rational-rate polyphase resampling: the
 anti-alias FIR is designed host-side in float64 at trace time

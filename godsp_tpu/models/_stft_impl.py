@@ -8,9 +8,8 @@ spectral.go:26-33, and window/window.go tapers) but keep per-frame
 spectra instead of averaging them, which is what production audio/sensor
 pipelines consume.
 
-All functions are batched over leading axes and jit-compatible; the FFT
-dispatch routes power-of-2 sizes through the Pallas TPU kernel
-(fft/pow2.py).
+All functions are batched over leading axes and jit-compatible; every
+power-of-2 transform goes through the one FFT dispatch (fft/pow2.py).
 """
 
 from __future__ import annotations
@@ -114,21 +113,6 @@ def _stft_jit(x, w, nfft: int, hop: int, pad: int, onesided: bool):
     return spec
 
 
-def _fused_stft_eligible(nfft: int, pad: int, hop: int) -> bool:
-    from godsp_tpu.spectral._pwelch_impl import fused_path_eligible
-
-    return fused_path_eligible(nfft, pad, hop)
-
-
-def _fused_window(w: jax.Array, pad: int) -> jax.Array:
-    """NFFT-length window zero-extended to pad: the fused kernel windows
-    AFTER zero-extension, so this reproduces stft's window-then-pad
-    semantics exactly."""
-    import jax.numpy as jnp
-
-    return jnp.pad(w, (0, pad - w.shape[0]))
-
-
 def stft(
     x,
     nfft: int,
@@ -153,23 +137,6 @@ def stft(
     if pad < nfft:
         raise ValueError("pad must be >= nfft")
     w = _resolve_window(window, nfft, x.dtype)
-    if onesided and x.shape[-1] >= nfft:
-        if _fused_stft_eligible(nfft, pad, hop):
-            from godsp_tpu.ops.pallas_stft import stft_pallas
-
-            n_frames = (x.shape[-1] - nfft) // hop + 1
-            return stft_pallas(x, _fused_window(w, pad), nfft, hop, n_frames, pad=pad)
-        if _fused_stft_eligible(nfft, pad, nfft):
-            # Odd hop: frame in XLA, then run the fused kernel on the
-            # frames as a back-to-back (stride == nfft) stream.
-            from godsp_tpu.ops.pallas_stft import stft_pallas
-
-            frames = stft_frames(x, nfft, hop)
-            n_frames = frames.shape[-2]
-            flat = frames.reshape(*frames.shape[:-2], n_frames * nfft)
-            return stft_pallas(
-                flat, _fused_window(w, pad), nfft, nfft, n_frames, pad=pad
-            )
     return _stft_jit(x, w, nfft, hop, pad, onesided)
 
 
@@ -191,55 +158,8 @@ def _nola_norm(w, n_frames: int, hop: int, length: int, fdt):
     return jnp.maximum(norm, jnp.finfo(fdt).tiny)
 
 
-def _istft_fused_eligible(nfft: int, pad: int, hop: int) -> bool:
-    from godsp_tpu.ops.pallas_istft import istft_fused_supported
-
-    return (
-        jax.default_backend() == "tpu"
-        and not jax.config.jax_enable_x64
-        and istft_fused_supported(nfft, pad, hop)
-    )
-
-
-def _ola_unnorm_fused(spec, w, nfft: int, hop: int, pad: int,
-                      onesided: bool):
-    """Un-normalized windowed overlap-add over the covered span via the
-    fused kernel (ops.pallas_istft); spectrum mirroring, the natural ->
-    digit bin permutation stay in XLA, plane-wise."""
-    from godsp_tpu.ops.pallas_istft import istft_overlap_add
-
-    fdt = default_float()
-    # Split to f32 planes FIRST: flips/transposes on complex arrays
-    # compile pathologically through the remote compiler (BASELINE.md),
-    # so the mirror and digit permutation run plane-wise.
-    sr = jnp.real(spec).astype(jnp.float32)
-    si = jnp.imag(spec).astype(jnp.float32)
-    if onesided:
-        mid = slice(1, -1) if pad % 2 == 0 else slice(1, None)
-        tr = jnp.flip(sr[..., mid], axis=-1)
-        ti = -jnp.flip(si[..., mid], axis=-1)
-        sr = jnp.concatenate([sr, tr], axis=-1)
-        si = jnp.concatenate([si, ti], axis=-1)
-    from godsp_tpu.ops import pallas_fft as _pf
-
-    n1 = pad // 128
-    if _pf._natural_fused and n1 <= _pf._NATURAL_FUSED_MAX_N1:
-        # The kernel permutes natural -> digit on the MXU in-VMEM; no
-        # XLA transpose pass (the input twin of the forward kernel's
-        # natural-order emission).  Size-gated like the forward: the
-        # permute is n1^2 lane concats (round-3 probes).
-        return istft_overlap_add(
-            sr, si, w.astype(jnp.float32), nfft, hop, natural_in=True,
-        ).astype(fdt)
-
-    return istft_overlap_add(
-        _pf.natural_to_digit(sr, pad), _pf.natural_to_digit(si, pad),
-        w.astype(jnp.float32), nfft, hop,
-    ).astype(fdt)
-
-
-def _ola_unnorm_xla(spec, w, nfft: int, hop: int, pad: int, onesided: bool):
-    """Un-normalized windowed overlap-add over the covered span (XLA)."""
+def _ola_unnorm(spec, w, nfft: int, hop: int, pad: int, onesided: bool):
+    """Un-normalized windowed overlap-add over the covered span."""
     fdt = default_float()
     if onesided:
         spec = _mirror_full_spectrum(spec, pad)
@@ -251,25 +171,16 @@ def _ola_unnorm_xla(spec, w, nfft: int, hop: int, pad: int, onesided: bool):
     return flat.at[..., idx].add(frames)
 
 
-def _ola_unnorm(spec, w, nfft: int, hop: int, pad: int, onesided: bool,
-                fused: bool):
-    """Un-normalized windowed OLA: fused kernel or XLA scatter-add."""
-    ola = _ola_unnorm_fused if fused else _ola_unnorm_xla
-    return ola(spec, w, nfft, hop, pad, onesided)
-
-
 @partial(
     jax.jit,
-    static_argnames=("nfft", "hop", "length", "onesided", "pad", "fused"),
+    static_argnames=("nfft", "hop", "length", "onesided", "pad"),
 )
 def _istft_jit(spec, w, nfft: int, hop: int, length: int, onesided: bool,
-               pad: int, fused: bool = False):
+               pad: int):
     # Weighted overlap-add with least-squares (NOLA) normalization:
     # y[t] = sum_f w*frames_f[t - f*hop] / sum_f w^2[t - f*hop].
-    # fused=True runs the OLA through the VMEM kernel (ops.pallas_istft);
-    # everything around it is shared so the two paths cannot diverge.
     fdt = default_float()
-    y = _ola_unnorm(spec, w, nfft, hop, pad, onesided, fused)
+    y = _ola_unnorm(spec, w, nfft, hop, pad, onesided)
     n_frames = spec.shape[-2]
     span = (n_frames - 1) * hop + nfft
     if length > span:
@@ -302,8 +213,7 @@ def istft(
     pad = 2*bins - 1.  Defaults to the even choice; pass the stft call's
     pad explicitly when it was odd.
     """
-    spec = put(spec)  # split-plane transfer: host complex buffers cannot
-    # move to some TPU transports directly (_dtypes.put)
+    spec = put(spec)
     hop = nfft // 2 if hop is None else hop
     if hop <= 0:
         raise ValueError("hop must be positive")
@@ -322,8 +232,7 @@ def istft(
     n_frames = spec.shape[-2]
     length = length or (n_frames - 1) * hop + nfft
     w = _resolve_window(window, nfft, default_float())
-    fused = n_frames > 0 and _istft_fused_eligible(nfft, pad, hop)
-    return _istft_jit(spec, w, nfft, hop, length, onesided, pad, fused=fused)
+    return _istft_jit(spec, w, nfft, hop, length, onesided, pad)
 
 
 def spectrogram(
@@ -345,32 +254,8 @@ def spectrogram(
     hop = nfft // 2 if hop is None else hop
     if hop <= 0:
         raise ValueError("hop must be positive")
-    pad_r = pad or nfft
-    if x.shape[-1] >= nfft and _fused_stft_eligible(nfft, pad_r, hop):
-        # Fused power path: no complex spectra ever hit HBM.
-        from godsp_tpu.ops.pallas_stft import stft_pallas
-
-        w = _resolve_window(window, nfft, x.dtype)
-        n_frames = (x.shape[-1] - nfft) // hop + 1
-        p = stft_pallas(
-            x, _fused_window(w, pad_r), nfft, hop, n_frames, pad=pad_r,
-            out="power",
-        )
-    elif x.shape[-1] >= nfft and _fused_stft_eligible(nfft, pad_r, nfft):
-        # Odd hop: XLA framing + fused kernel at stride == nfft.
-        from godsp_tpu.ops.pallas_stft import stft_pallas
-
-        w = _resolve_window(window, nfft, x.dtype)
-        frames = stft_frames(x, nfft, hop)
-        n_frames = frames.shape[-2]
-        flat = frames.reshape(*frames.shape[:-2], n_frames * nfft)
-        p = stft_pallas(
-            flat, _fused_window(w, pad_r), nfft, nfft, n_frames, pad=pad_r,
-            out="power",
-        )
-    else:
-        spec = stft(x, nfft, hop, window, pad, onesided=True)
-        p = spec.real * spec.real + spec.imag * spec.imag
+    spec = stft(x, nfft, hop, window, pad, onesided=True)
+    p = spec.real * spec.real + spec.imag * spec.imag
     if scale == "magnitude":
         return jnp.sqrt(p)
     if scale == "db":
@@ -414,10 +299,7 @@ def _istft_chunk_jit(spec, carry, gate, w, nfft: int, hop: int, pad: int,
     frames) so chunk count never forces a recompile — same discipline
     as parallel.streaming._chunk_accumulate.
     """
-    y = _ola_unnorm(
-        spec, w, nfft, hop, pad, onesided,
-        _istft_fused_eligible(nfft, pad, hop),
-    )
+    y = _ola_unnorm(spec, w, nfft, hop, pad, onesided)
     F = spec.shape[-2]
     own_len = F * hop
     out = _settle_ola_block(y[..., :own_len], carry, gate, w, nfft, hop, F)
@@ -576,8 +458,8 @@ class StreamingSTFT:
 
     Each push runs one device program; block lengths that are a
     multiple of hop keep the carry length constant so every chunk after
-    the first reuses one compiled program (the tunnel-dispatch
-    discipline of parallel.streaming).
+    the first reuses one compiled program (the same discipline as
+    parallel.streaming).
     """
 
     def __init__(

@@ -1,11 +1,10 @@
 """2-D convolution / correlation and image-style filtering.
 
 The reference's only 2-D transform surface is the FFT2 driver
-(fft.go:104-154); production DSP needs 2-D LINEAR convolution.  Built
-the TPU way: both operands zero-pad to kernel-eligible powers of two and
-run ONE separable digit-order convolution chain (fft/pow2.py
-pow2_convolve2) — the 2-D analogue of models.filter.fftconvolve, so the
-hot path is batched Pallas FFTs with no reorder transposes.
+(fft.go:104-154); production DSP needs 2-D LINEAR convolution.  Both
+operands zero-pad to powers of two and run ONE separable convolution
+chain (fft/pow2.py pow2_convolve2) — the 2-D analogue of
+models.filter.fftconvolve, so the hot path is batched FFTs.
 
 scipy.signal semantics: convolve2d/correlate2d (mode full/same/valid,
 boundary fill/wrap/symm), wiener (local-statistics adaptive filter),

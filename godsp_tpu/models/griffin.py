@@ -8,13 +8,8 @@ spectrograms (STFT of some signal) and the set with the given magnitude
 [Griffin & Lim 1984], with the momentum acceleration of Perraudin,
 Balazs & Sondergaard 2013 ("fast GLA").
 
-TPU-first shape: the whole iteration is ONE jitted lax.fori_loop whose
-body is the fused analysis and synthesis kernels (ops.pallas_stft /
-ops.pallas_istft) when the geometry qualifies — spectra cross the loop
-as complex values but every op touching them is elementwise (the layout
-work inside the kernels runs on f32 planes), which the remote compiler
-handles well.  Non-qualifying geometries (odd hops, Bluestein pads,
-float64 CPU) run the same loop over the XLA stft/istft bodies.
+The whole iteration is ONE jitted lax.fori_loop whose body is the
+stft/istft analysis and synthesis bodies of models._stft_impl.
 """
 
 from __future__ import annotations
@@ -28,9 +23,6 @@ import jax.numpy as jnp
 from godsp_tpu._dtypes import as_real_array, default_float
 from godsp_tpu.models._stft_impl import (
     WindowSpec,
-    _fused_stft_eligible,
-    _fused_window,
-    _istft_fused_eligible,
     _nola_norm,
     _ola_unnorm,
     _resolve_window,
@@ -42,13 +34,10 @@ __all__ = ["griffin_lim"]
 
 @partial(
     jax.jit,
-    static_argnames=(
-        "nfft", "hop", "pad", "length", "n_iter", "momentum", "fused_fwd",
-        "fused_inv",
-    ),
+    static_argnames=("nfft", "hop", "pad", "length", "n_iter", "momentum"),
 )
 def _gl_jit(mag, w, nfft: int, hop: int, pad: int, length: int, n_iter: int,
-            momentum: float, fused_fwd: bool, fused_inv: bool):
+            momentum: float):
     fdt = default_float()
     cdt = jnp.complex128 if fdt == jnp.float64 else jnp.complex64
     n_frames = mag.shape[-2]
@@ -56,26 +45,15 @@ def _gl_jit(mag, w, nfft: int, hop: int, pad: int, length: int, n_iter: int,
     mag = mag.astype(fdt)
     tiny = jnp.asarray(jnp.finfo(fdt).tiny, fdt)
 
-    if fused_fwd:
-        from godsp_tpu.ops.pallas_stft import stft_pallas
-
-        wf = _fused_window(w.astype(jnp.float32), pad)
-
-        def fwd(y):
-            return stft_pallas(
-                y.astype(jnp.float32), wf, nfft, hop, n_frames, pad=pad
-            )
-    else:
-
-        def fwd(y):
-            return _stft_jit(y, w.astype(fdt), nfft, hop, pad, True)
+    def fwd(y):
+        return _stft_jit(y, w.astype(fdt), nfft, hop, pad, True)
 
     # The NOLA denominator is loop-invariant (only w/n_frames/hop):
     # hoist the scatter-add out of the fori_loop and divide in the body.
     norm = _nola_norm(w, n_frames, hop, span, fdt)
 
     def inv(s):
-        return _ola_unnorm(s, w, nfft, hop, pad, True, fused_inv) / norm
+        return _ola_unnorm(s, w, nfft, hop, pad, True) / norm
 
     def project(c):
         """Replace c's magnitude with the target, keep its phase."""
@@ -145,8 +123,4 @@ def griffin_lim(
         raise ValueError("mag has no frames")
     length = length or (n_frames - 1) * hop + nfft
     w = _resolve_window(window, nfft, default_float())
-    return _gl_jit(
-        mag, w, nfft, hop, pad, length, n_iter, float(momentum),
-        _fused_stft_eligible(nfft, pad, hop),
-        _istft_fused_eligible(nfft, pad, hop),
-    )
+    return _gl_jit(mag, w, nfft, hop, pad, length, n_iter, float(momentum))

@@ -1,10 +1,10 @@
-"""IIR filtering as a blocked parallel scan (TPU-first linear recurrence).
+"""IIR filtering as a blocked parallel scan (parallel linear recurrence).
 
 The reference library has no IIR surface (go-dsp stops at FFT-domain
 convolution, fft/fft.go:55-69); production DSP needs recursive filters.
 A direct translation — the per-sample loop scipy.signal.lfilter runs in
-C — is the worst possible TPU program (a data-dependent chain of scalar
-ops).  Instead the transposed-direct-form-II recurrence
+C — is the worst possible accelerator program (a data-dependent chain of
+scalar ops).  Instead the transposed-direct-form-II recurrence
 
     s[n] = A s[n-1] + g x[n]          (k = filter order states)
     y[n] = b0 x[n] + s[n-1][0]
@@ -13,7 +13,7 @@ is evaluated in two levels, both compiler-friendly:
 
   1. Within blocks of T samples, the state contribution of the block's
      own inputs is a CAUSAL MATMUL against the trace-time constant
-     kernel K[m, j] = A^(m-j) g (lower-triangular, (T, T, k)) — MXU
+     kernel K[m, j] = A^(m-j) g (lower-triangular, (T, T, k)) — matmul
      work at N*T*k mults, no sequential dependence.
   2. Across the N/T blocks, carries compose associatively:
      h[b+1] = A^T h[b] + part[b, T-1] — one jax.lax.associative_scan
@@ -139,7 +139,7 @@ def _lfilter_core(x2, zi2, ba_key, T: int, N: int):
     B = x2.shape[1] // T
     X = x2.reshape(r, B, T)
 
-    # 1. own-input state contributions (causal matmul, MXU):
+    # 1. own-input state contributions (causal matmul):
     part = jnp.einsum("mjs,rbj->brms", K, X, precision=_HI)  # (B, r, T, k)
 
     # 2. cross-block carries (associative scan over B):

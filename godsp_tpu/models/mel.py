@@ -1,9 +1,8 @@
 """Mel-scale features: filterbank, log-mel spectrogram, MFCC.
 
-The standard audio-ML front end, riding the framework's fused
-spectrogram kernel (ops.pallas_stft on TPU) and the FFT-based DCT
-(fft/dct.py): power spectrogram -> mel filterbank matmul (MXU) -> log ->
-DCT-II.  HTK mel scale (2595 log10(1 + f/700)); triangular filters with
+The standard audio-ML front end, built on the framework's batched
+spectrogram and the FFT-based DCT (fft/_dct_impl.py): power spectrogram
+-> mel filterbank matmul -> log -> DCT-II.  HTK mel scale (2595 log10(1 + f/700)); triangular filters with
 optional Slaney area normalization.
 """
 
@@ -16,7 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from godsp_tpu._dtypes import default_float, put
+from godsp_tpu._dtypes import default_float
 from godsp_tpu.fft._dct_impl import dct
 from godsp_tpu.models._stft_impl import WindowSpec, spectrogram
 
@@ -89,48 +88,14 @@ def mel_spectrogram(
 ) -> jax.Array:
     """(..., frames, n_mels) mel-scale power spectrogram.
 
-    Fused kernel power spectrogram -> (lp, n_mels) MXU matmul; log=True
-    applies ln(mel + eps).
+    Power spectrogram -> (lp, n_mels) matmul; log=True applies
+    ln(mel + eps).
     """
-    from godsp_tpu._dtypes import as_real_array
-    from godsp_tpu.models._stft_impl import _fused_stft_eligible, _fused_window, _resolve_window
-
     fb = mel_filterbank(n_mels, nfft, fs, fmin, fmax, norm)
-    x = as_real_array(x)
-    hop_r = nfft // 2 if hop is None else hop
-    if (
-        hop_r > 0
-        and x.shape[-1] >= nfft
-        and _fused_stft_eligible(nfft, nfft, hop_r)
-    ):
-        # Fully fused: frame->window->FFT->|.|^2->filterbank in one
-        # kernel; neither frames nor the power spectrum hit HBM.
-        from godsp_tpu.ops.pallas_stft import stft_pallas
-
-        w = _resolve_window(window, nfft, x.dtype)
-        n_frames = (x.shape[-1] - nfft) // hop_r + 1
-        m = stft_pallas(
-            x, _fused_window(w, nfft), nfft, hop_r, n_frames, out="mel", fb=fb
-        )
-    elif (
-        hop_r > 0
-        and x.shape[-1] >= nfft
-        and _fused_stft_eligible(nfft, nfft, nfft)
-    ):
-        # Odd hop: XLA framing + the fused mel kernel at stride == nfft.
-        from godsp_tpu.models._stft_impl import stft_frames
-        from godsp_tpu.ops.pallas_stft import stft_pallas
-
-        w = _resolve_window(window, nfft, x.dtype)
-        frames = stft_frames(x, nfft, hop_r)
-        n_frames = frames.shape[-2]
-        flat = frames.reshape(*frames.shape[:-2], n_frames * nfft)
-        m = stft_pallas(
-            flat, _fused_window(w, nfft), nfft, nfft, n_frames, out="mel", fb=fb
-        )
-    else:
-        p = spectrogram(x, nfft, hop, window, scale="power")  # (..., frames, lp)
-        m = p @ fb.astype(p.dtype).T
+    p = spectrogram(x, nfft, hop, window, scale="power")  # (..., frames, lp)
+    # HIGHEST keeps the filterbank contraction in full float32: at the
+    # default precision a GPU runs it in TF32 (about 10 mantissa bits).
+    m = jnp.matmul(p, fb.astype(p.dtype).T, precision=jax.lax.Precision.HIGHEST)
     return jnp.log(m + eps) if log else m
 
 
@@ -148,7 +113,7 @@ def stream_mel(
     eps: float = 1e-10,
 ):
     """Streaming mel front end: sample blocks in, (..., F_k, n_mels)
-    mel (or log-mel) blocks out, one fused device program per block.
+    mel (or log-mel) blocks out, one device program per block.
 
     The analysis mirror of models.stream_istft for hours-long audio: the
     (< nfft)-sample tail behind each block's last frame start is carried

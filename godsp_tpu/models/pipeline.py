@@ -51,7 +51,9 @@ def wav_psd(
     The signal never fully materializes on the host: fixed-size blocks
     stream from the reader into the sharded device step (halo exchange +
     psum), with optional periodic checkpointing for resumable multi-hour
-    runs (SURVEY.md §5).
+    runs (SURVEY.md §5): when checkpoint_path already holds a snapshot,
+    the samples it accounts for are skipped and the run resumes after
+    them.
     """
     w = wavmod.read_wav(src)
     sp = StreamingPwelch(
@@ -62,8 +64,15 @@ def wav_psd(
         checkpoint_path=checkpoint_path,
         checkpoint_every_chunks=checkpoint_every_chunks,
     )
+    # A restored snapshot has folded in (or buffered) its first
+    # samples_in samples; feed only what follows them.
+    skip = sp.metrics.samples_in
     for block in w.blocks(block_size):
-        sp.update(block)
+        if skip >= block.shape[-1]:
+            skip -= block.shape[-1]
+            continue
+        sp.update(block[skip:])
+        skip = 0
     pxx, freqs = sp.finalize()
     return WavPsdResult(
         pxx=pxx,
@@ -114,8 +123,8 @@ def spectra_to_wav(
 
     The synthesis mirror of wav_psd: chunks of (..., F, bins) STFT
     spectra (an iterable — e.g. frames produced by a vocoder or a
-    spectral-edit loop) run through models.stream_istft (fused
-    ISTFT kernel, carried overlap spill) and each settled time block is
+    spectral-edit loop) run through models.stream_istft (carried
+    overlap spill) and each settled time block is
     appended to `dest` via wav.WavWriter, so neither the spectra nor
     the signal ever materialize fully.  Mono blocks (..., = ()) write a
     mono file; a single leading channel axis writes multichannel.

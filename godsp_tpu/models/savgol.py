@@ -2,7 +2,7 @@
 
 The reference has no smoothing surface; production spectral pipelines
 use SG filters for baseline removal and derivative estimation.  The
-TPU-first shape: the FIR taps AND the polynomial edge-correction
+shape: the FIR taps AND the polynomial edge-correction
 matrices are closed-form least-squares solutions computed in float64
 numpy at trace time (the twiddle-cache discipline), so the device work
 is one batched kernel-chain convolution plus two tiny edge matmuls —
@@ -133,8 +133,11 @@ def savgol_filter(
         )
         Eh = jnp.asarray(E_head, x.dtype)
         Et = jnp.asarray(E_tail, x.dtype)
-        head = jnp.einsum("ij,...j->...i", Eh, x[..., :window_length])
-        tail = jnp.einsum("ij,...j->...i", Et, x[..., n - window_length :])
+        hi = jax.lax.Precision.HIGHEST  # no TF32 on GPUs
+        head = jnp.einsum("ij,...j->...i", Eh, x[..., :window_length], precision=hi)
+        tail = jnp.einsum(
+            "ij,...j->...i", Et, x[..., n - window_length :], precision=hi
+        )
         y = jnp.concatenate([head, y[..., halflen : n - halflen], tail], axis=-1)
         return jnp.moveaxis(y, -1, axis)
     # padded modes: extend by halflen each side, convolve 'valid'-style

@@ -1,6 +1,6 @@
 """B-spline filtering and evaluation (scipy.signal spline surface).
 
-TPU-first formulation: under scipy's mirror-symmetric (half-sample)
+Formulation: under scipy's mirror-symmetric (half-sample)
 boundary, convolution by the symmetric B-spline kernel is DIAGONAL in
 the DCT-II basis — so the spline-coefficient "inverse filter" is one
 forward DCT, a pointwise divide, and one inverse DCT through the

@@ -4,13 +4,12 @@ scipy.signal's classic cwt/ricker/morlet surface (removed from scipy in
 1.15 in favor of PyWavelets — the semantics here follow the classic
 definitions, with an independent numpy oracle in tests/test_wavelets.py).
 
-TPU-first shape: instead of scipy's per-width Python loop of separate
+Shape: instead of scipy's per-width Python loop of separate
 convolutions, all W wavelet kernels are zero-padded to the widest
 length and convolved with the signal in ONE batched kernel-chain FFT
 launch; per-width 'same' alignment is a single gather on the full
 outputs (trailing zero taps shift nothing).  The scalogram therefore
-costs one forward FFT of the signal + W pointwise products — the
-batched dimension rides the Pallas kernels' lane grid.
+costs one forward FFT of the signal + W pointwise products, batched.
 """
 
 from __future__ import annotations

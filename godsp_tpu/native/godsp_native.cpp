@@ -1,11 +1,11 @@
 // godsp_tpu native host ops.
 //
-// The TPU build's counterpart of the reference's host-side hot loops:
+// The counterpart of the reference's host-side hot loops:
 // sample decode/normalization (wav/wav.go:138-161 does it per-sample in
 // Go) and overlapped frame extraction (spectral/spectral.go:36-44 copies
 // per segment).  These feed the device pipeline from the host, so they
 // are plain single-pass C++ running on the CPU — device compute stays in
-// XLA/Pallas.
+// XLA.
 //
 // Also a growable FIFO byte-stream buffer (StreamBuffer) backing the
 // streaming Pwelch driver's chunk assembly: the numpy fallback

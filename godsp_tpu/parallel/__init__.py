@@ -1,13 +1,12 @@
-"""Multi-chip scaling: device meshes, sharded + streaming Welch PSD.
+"""Multi-device scaling: device meshes, sharded + streaming Welch PSD.
 
-TPU-native replacement for the reference's goroutine worker pool
-(SURVEY.md §2.2): data parallelism over channels ("dp"), sequence
-parallelism over the time axis ("sp") with halo exchange (ppermute or a
-Pallas remote-DMA ring), and psum periodogram reduction.
+Replaces the reference's goroutine worker pool (SURVEY.md §2.2): data
+parallelism over channels ("dp"), sequence parallelism over the time
+axis ("sp") with a ppermute halo exchange, and psum periodogram
+reduction.
 """
 
 from godsp_tpu.parallel._fft_sharded_impl import fft_sharded
-from godsp_tpu.parallel.halo import ring_halo_pallas
 from godsp_tpu.parallel.mesh import MeshConfig, init_distributed, make_mesh
 from godsp_tpu.parallel._pwelch_sharded_impl import (
     partial_periodogram,
@@ -26,7 +25,6 @@ __all__ = [
     "init_distributed",
     "istft_sharded",
     "pwelch_sharded",
-    "ring_halo_pallas",
     "sharded_partial_step",
     "spectrogram_sharded",
     "stream_pwelch",

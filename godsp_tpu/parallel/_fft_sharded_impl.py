@@ -3,7 +3,7 @@
 SURVEY.md §2.2 lists this as the TP row of the parallelism map: a single
 N-point DFT factored N = p x N2 (p = number of "sp" shards) so each
 device computes local batched FFTs while the cross-device data movement
-rides ICI collectives:
+rides collectives (NCCL over NVLink on GPUs):
 
   X[i1, i2] = x[N2*i1 + i2]  (i1 = shard row, i2 local)
   step 1:    A[k1, i2] = sum_i1 F1[k1, i1] X[i1, i2]
@@ -16,17 +16,17 @@ rides ICI collectives:
                psum_scatter hands device k1 its reduced row directly
                (reduce-scatter traffic, no divisibility demands).
   step 2:    B = A * W_N^{k1 i2}  (exact trace-time f64 twiddle split)
-  step 3:    Y[k1, k2] = FFT_{N2}(B[k1, :])[k2]  (local, Pallas/XLA)
+  step 3:    Y[k1, k2] = FFT_{N2}(B[k1, :])[k2]  (local batched FFT)
   output:    Y[k1 + p*k2] — "digit" shard order; order="natural"
              performs one more all_to_all block transpose.
 
 Batched: leading axes are carried along locally (replicated over "sp" —
 the TP semantic shards the SIGNAL axis).  The shard_map runs with
-check_vma=True (collective correctness checking; the Pallas kernels
-declare their varying-axes via vma-annotated out shapes).
+check_vma=True (collective correctness checking).  The p-point DFT of
+step 1 runs at Precision.HIGHEST: at the default precision a GPU would
+contract it in TF32.
 
-Everything local reuses the framework's batched FFT stack (Pallas kernel
-on TPU).  Validated against numpy on the 8-device virtual mesh
+Everything local reuses the framework's batched FFT stack.  Validated against numpy on the 8-device virtual mesh
 (tests/test_parallel.py).  Reference analogue: the worker-pool scaling
 intent of SetWorkerPoolSize (fft/fft.go:89-101), re-expressed as
 chip-level parallelism.
@@ -45,6 +45,8 @@ from godsp_tpu._dtypes import as_complex_array, complex_for, put
 from godsp_tpu.dsputils.utils import is_power_of_2
 
 __all__ = ["fft_sharded"]
+
+_HI = jax.lax.Precision.HIGHEST
 
 
 @lru_cache(maxsize=None)
@@ -135,9 +137,8 @@ def _run_cached(
     cdtype_name: str,
 ):
     """One jitted program per (mesh, geometry): rebuilding the jit per
-    call would retrace every time; eager op-by-op complex dispatch is
-    also unimplemented on some TPU transports, so everything (including
-    the F1 constant, which embeds at trace time) lives under this jit."""
+    call would retrace every time, so everything (including the F1
+    constant, which embeds at trace time) lives under this jit."""
     cdtype = jnp.dtype(cdtype_name)
     n = p * n2
 
@@ -156,7 +157,7 @@ def _run_cached(
             cols = jax.lax.all_to_all(blocks, "sp", split_axis=1, concat_axis=1)
 
             # Step 1: p-point DFT over i1 (local matmul over axis 1).
-            a = jnp.einsum("ki,bin->bkn", f1, cols)  # (b, p, n2/p)
+            a = jnp.einsum("ki,bin->bkn", f1, cols, precision=_HI)  # (b, p, n2/p)
 
             # Step 2: twiddle W_N^{k1 * i2} on this device's i2 slice,
             # from the exact trace-time f64 split (row indexed by shard).
@@ -176,14 +177,16 @@ def _run_cached(
             # outer product and one psum_scatter reduces AND distributes
             # row k1 to device k1 — reduce-scatter traffic, no
             # divisibility demands beyond N % p.
-            contrib = jnp.einsum("k,bn->kbn", f1[:, my], xl)  # (p, b, n2)
+            contrib = jnp.einsum(
+                "k,bn->kbn", f1[:, my], xl, precision=_HI
+            )  # (p, b, n2)
             rows = jax.lax.psum_scatter(
                 contrib, "sp", scatter_dimension=0, tiled=False
             )  # (b, n2): the my-th reduced row
             t_full = jnp.asarray(_twiddle_full_row(p, n2, inverse), cdtype)
             rows = rows * t_full[my][None, :]
 
-        # Step 3: local N2-point FFT (Pallas kernel on TPU when sized).
+        # Step 3: local N2-point FFT.
         y = pow2_fft(rows, inverse=inverse)  # (b, n2): Y[my + p*k2]
 
         if order == "digit":

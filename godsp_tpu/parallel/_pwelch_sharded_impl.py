@@ -1,6 +1,6 @@
 """Distributed Welch PSD: time-axis (sequence-parallel) sharding.
 
-The TPU-native scaling of spectral.Pwelch's serial segment loop
+The multi-device scaling of spectral.Pwelch's serial segment loop
 (reference pwelch.go:107-122), per SURVEY.md §2.2/§5:
 
   * the signal's time axis is sharded over the mesh's "sp" axis;
@@ -66,10 +66,7 @@ def _frames_from_block(block, halo, nfft: int, stride: int, segs_per_shard: int)
 
 @partial(
     jax.jit,
-    static_argnames=(
-        "mesh", "nfft", "pad", "stride", "segs_per_shard", "lp", "halo_impl",
-        "packed_half",
-    ),
+    static_argnames=("mesh", "nfft", "pad", "stride", "segs_per_shard", "lp"),
 )
 def sharded_partial_step(
     x,
@@ -82,8 +79,6 @@ def sharded_partial_step(
     segs_per_shard: int,
     lp: int,
     total_segs,
-    halo_impl: tuple = ("ppermute", False),
-    packed_half: bool = False,
 ):
     """One sharded accumulation step.
 
@@ -95,66 +90,24 @@ def sharded_partial_step(
     be smaller than pad//2 + 1 when options.pad < nfft (head bins kept).
     total_segs is TRACED (not static): the streaming driver's final
     remainder chunk changes it per call, and a static arg would trigger a
-    full remote recompile (~minutes on this transport) at finalize.
+    recompile at finalize.
     Returns (periodogram_sum, segment_count), psum-reduced over "sp" and
     replicated.
     """
-    from godsp_tpu.spectral._pwelch_impl import fused_path_eligible
-
     n_sp = mesh.shape["sp"]
     H = max(nfft - stride, 0)
-    use_fused_halo = (
-        H > 0
-        and halo_impl[0] == "fused"
-        and segs_per_shard % 8 == 0
-        and fused_path_eligible(nfft, pad, stride)
-    )
 
     def shard_fn(x_local, tail_local):
-        if use_fused_halo:
-            # Fully-fused path: the halo RDMA is started INSIDE the
-            # Pwelch kernel and overlaps the interior tiles' FFTs
-            # (parallel/fused_halo.py).  Ring-wrap garbage on the last
-            # shard is exactly the globally-masked tail.
-            from godsp_tpu.ops.pallas_pwelch import digit_to_natural_bins
-            from godsp_tpu.parallel.fused_halo import (
-                pwelch_power_partials_rdma,
-            )
-
-            sp_idx = jax.lax.axis_index("sp")
-            seg_global = sp_idx * segs_per_shard + jnp.arange(segs_per_shard)
-            mask = (seg_global < total_segs).astype(x_local.dtype)
-            mask = jnp.broadcast_to(
-                mask, x_local.shape[:-1] + (segs_per_shard,)
-            )
-            partials = pwelch_power_partials_rdma(
-                x_local, mask, w_pad, nfft, stride, n_sp,
-                pad=pad, tail=tail_local, interpret=bool(halo_impl[1]),
-            )
-            p = digit_to_natural_bins(partials.sum(axis=-2), pad)[..., :lp]
-            doubler = jnp.ones(lp, dtype=p.dtype).at[1 : lp - 1].set(2.0)
-            p_sum, count = p * doubler, jnp.sum(mask, axis=-1)
-            return jax.lax.psum(p_sum, "sp"), jax.lax.psum(count, "sp")
-
         if H > 0:
             # Ring halo: src i -> dst i-1, so device i receives the head
             # of device i+1's block.  The wraparound into the last shard
             # is replaced by the streaming tail (or masked dead in
-            # one-shot mode).  Two implementations with identical
-            # contracts: XLA collective-permute (default) or the Pallas
-            # remote-DMA ring kernel (parallel/halo.py).
-            if halo_impl[0] == "pallas":
-                from godsp_tpu.parallel.halo import ring_halo_pallas
-
-                halo = ring_halo_pallas(
-                    x_local, H, n_sp, has_dp=True, interpret=halo_impl[1]
-                )
-            else:
-                halo = jax.lax.ppermute(
-                    x_local[..., :H],
-                    "sp",
-                    perm=[(i, (i - 1) % n_sp) for i in range(n_sp)],
-                )
+            # one-shot mode).
+            halo = jax.lax.ppermute(
+                x_local[..., :H],
+                "sp",
+                perm=[(i, (i - 1) % n_sp) for i in range(n_sp)],
+            )
             sp_idx = jax.lax.axis_index("sp")
             is_last = (sp_idx == n_sp - 1)
             halo = jnp.where(is_last, tail_local, halo)
@@ -168,40 +121,8 @@ def sharded_partial_step(
         mask = (seg_global < total_segs).astype(x_local.dtype)
         mask = jnp.broadcast_to(mask, x_local.shape[:-1] + (segs_per_shard,))
 
-        if fused_path_eligible(nfft, pad, stride):
-            # Fused Pallas path: frame/window/FFT/|.|^2/masked-sum in one
-            # kernel per tile (ops.pallas_pwelch); the halo is appended so
-            # boundary-straddling segments are exact.  Real input only
-            # needs the one-sided bins, so the half-Hermitian contraction
-            # applies where the rfft kernel covers pad (round 4).
-            from godsp_tpu.ops.pallas_pwelch import (
-                digit_to_natural_bins,
-                packed_to_natural_onesided,
-                pwelch_power_partials,
-            )
-
-            # packed_half is resolved by the CALLER (from the module
-            # toggle + rfft_supported_size) and arrives as a static arg,
-            # so set_packed_half_enabled() invalidates the jit cache key
-            # instead of being silently ignored for traced geometries.
-            half = packed_half
-            ext = jnp.concatenate([x_local, halo], axis=-1)
-            partials = pwelch_power_partials(
-                ext, mask, w_pad, nfft, stride, pad=pad, packed_half=half
-            )
-            if half:
-                # pad here is fft_len = max(options.pad, nfft); when
-                # options.pad < nfft only the first lp = options.pad//2+1
-                # head bins are kept (ZeroPadF no-op quirk,
-                # dsputils.go:60-63) — same truncation as the digit branch.
-                p = packed_to_natural_onesided(partials.sum(axis=-2), pad)[..., :lp]
-            else:
-                p = digit_to_natural_bins(partials.sum(axis=-2), pad)[..., :lp]
-            doubler = jnp.ones(lp, dtype=p.dtype).at[1 : lp - 1].set(2.0)
-            p_sum, count = p * doubler, jnp.sum(mask, axis=-1)
-        else:
-            frames = _frames_from_block(x_local, halo, nfft, stride, segs_per_shard)
-            p_sum, count = partial_periodogram(frames, w_pad, mask, pad, lp)
+        frames = _frames_from_block(x_local, halo, nfft, stride, segs_per_shard)
+        p_sum, count = partial_periodogram(frames, w_pad, mask, pad, lp)
         return jax.lax.psum(p_sum, "sp"), jax.lax.psum(count, "sp")
 
     batch_dims = x.ndim - 1
@@ -213,22 +134,9 @@ def sharded_partial_step(
     in_x = P(*lead, "sp")
     in_tail = P(*lead, None)  # tail halo is small; replicated along sp
     out = P(*lead)
-    # The fused-halo kernel's conditional RDMA (pl.when) trips vma branch
-    # checking in interpret mode (jax suggests check_vma=False as the
-    # workaround); every other path keeps full vma checking.
     return jax.shard_map(
         shard_fn, mesh=mesh, in_specs=(in_x, in_tail), out_specs=(out, out),
-        check_vma=not use_fused_halo,
     )(x, tail_halo)
-
-
-def _resolve_packed_half(fft_len: int) -> bool:
-    """Current value of the half-Hermitian toggle for this geometry,
-    resolved OUTSIDE jit so it participates in the static cache key."""
-    from godsp_tpu.ops.pallas_fft import rfft_supported_size
-    from godsp_tpu.ops import pallas_pwelch
-
-    return bool(pallas_pwelch._half_enabled and rfft_supported_size(fft_len))
 
 
 def resolve_geometry(options: Optional[PwelchOptions]):
@@ -253,7 +161,6 @@ def pwelch_sharded(
     fs: float,
     options: Optional[PwelchOptions] = None,
     mesh: Optional[Mesh] = None,
-    halo_impl: tuple = ("ppermute", False),
 ) -> tuple[jax.Array, jax.Array]:
     """Welch PSD of x with the time axis sharded over mesh axis "sp".
 
@@ -300,7 +207,7 @@ def pwelch_sharded(
     tail = jnp.zeros(x.shape[:-1] + (H,), dtype=fdt)
     p_sum, count = sharded_partial_step(
         x, tail, w_fft, mesh, nfft, fft_len, stride, segs_per_shard, lp,
-        total_segs, halo_impl=halo_impl, packed_half=_resolve_packed_half(fft_len),
+        total_segs,
     )
     pxx = p_sum / (count[..., None] * w_norm)
     freqs = jnp.arange(lp, dtype=fdt) * (fs / pad)

@@ -1,16 +1,17 @@
 """Device-mesh construction for the DSP pipelines.
 
 The reference's only parallelism is an in-process goroutine pool over
-butterfly blocks (fft/radix2.go:75-153).  The TPU equivalents
+butterfly blocks (fft/radix2.go:75-153).  The device-mesh equivalents
 (SURVEY.md §2.2):
 
   * dp — data parallel over independent signals/channels;
   * sp — sequence parallel over the time axis of one long signal, with
     overlap halos exchanged between neighbor shards.
 
-Multi-host: call jax.distributed.initialize() before building the mesh;
-jax.devices() then spans the pod slice and the same code runs unchanged
-(collectives ride ICI within a slice, DCN across).
+Multi-host: call init_distributed() before building the mesh;
+jax.devices() then spans every process's devices and the same code runs
+unchanged (collectives ride NVLink within a host, the network across
+hosts).
 """
 
 from __future__ import annotations
@@ -30,32 +31,28 @@ def init_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> int:
-    """Initialize multi-host JAX (idempotent); returns global device count.
+    """Initialize multi-process JAX; returns the global device count.
 
-    Call once per host before make_mesh on a pod slice; with no arguments
-    the TPU environment is auto-detected (jax.distributed.initialize's
-    default).  After this, jax.devices() spans the slice and the same
-    mesh/shard_map code runs unchanged — collectives ride ICI within a
-    slice and DCN across slices.  Failure policy is fail-fast per JAX
-    multi-host convention (SURVEY.md §5); no elastic resize.
+    Initializes only when asked — a coordinator address or a process
+    count was given — and then needs all three arguments (no cluster is
+    auto-detected).  With no arguments it is a no-op for a single
+    process.  After this, jax.devices() spans every process and the
+    same mesh/shard_map code runs unchanged.  Failure policy is
+    fail-fast per JAX multi-host convention (SURVEY.md §5): errors from
+    jax.distributed.initialize propagate; no elastic resize.
     """
-    if jax.process_count() == 1 and (num_processes or 1) > 1 or coordinator_address:
+    if coordinator_address is not None or num_processes is not None:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
             num_processes=num_processes,
             process_id=process_id,
         )
-    elif jax.process_count() == 1 and num_processes is None:
-        try:  # auto-detected TPU pod environment (no-op on single host)
-            jax.distributed.initialize()
-        except Exception:
-            pass  # single-process run: nothing to initialize
     return len(jax.devices())
 
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Frozen mesh description (no process-global knobs — the TPU
+    """Frozen mesh description (no process-global knobs — the
     counterpart of the reference's SetWorkerPoolSize global,
     fft/fft.go:89-101)."""
 
@@ -74,7 +71,9 @@ def make_mesh(
     """Build a ("dp", "sp") mesh.
 
     Default: all local devices on the sp axis (the streaming-Pwelch
-    layout — neighbor halos ride ICI).
+    layout).  A plain reshape of the device list: every GPU of a host
+    reaches every other over NVLink at the same rate, so the mesh
+    follows the algorithm alone.
     """
     devices = list(devices if devices is not None else jax.devices())
     if config is None:

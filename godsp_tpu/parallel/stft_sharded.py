@@ -21,12 +21,10 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from godsp_tpu import window as win
 from godsp_tpu._dtypes import as_real_array, default_float, put
+from godsp_tpu.fft.core import fft_real
 from godsp_tpu.models._stft_impl import (
     WindowSpec,
-    _fused_window,
-    _istft_fused_eligible,
     _ola_unnorm,
     _resolve_window,
     _settle_ola_block,
@@ -41,7 +39,7 @@ __all__ = ["istft_sharded", "spectrogram_sharded"]
 )
 def _sharded_power_frames(
     x,
-    w_pad,
+    w,
     mesh: Mesh,
     nfft: int,
     hop: int,
@@ -71,27 +69,17 @@ def _sharded_power_frames(
         frame_global = sp_idx * frames_per_shard + jnp.arange(frames_per_shard)
         mask = (frame_global < total_frames).astype(ext.dtype)
 
-        from godsp_tpu.spectral._pwelch_impl import fused_path_eligible
-
-        if fused_path_eligible(nfft, pad, hop):
-            from godsp_tpu.ops.pallas_stft import stft_pallas
-
-            p = stft_pallas(ext, w_pad, nfft, hop, frames_per_shard, pad=pad,
-                            out="power")
-        else:
-            idx = (
-                jnp.arange(frames_per_shard)[:, None] * hop
-                + jnp.arange(nfft)[None, :]
+        idx = (
+            jnp.arange(frames_per_shard)[:, None] * hop
+            + jnp.arange(nfft)[None, :]
+        )
+        frames = jnp.take(ext, idx, axis=-1) * w
+        if pad > nfft:
+            frames = jnp.pad(
+                frames, [(0, 0)] * (frames.ndim - 1) + [(0, pad - nfft)]
             )
-            frames = jnp.take(ext, idx, axis=-1) * w_pad[:nfft]
-            if pad > nfft:
-                frames = jnp.pad(
-                    frames, [(0, 0)] * (frames.ndim - 1) + [(0, pad - nfft)]
-                )
-            from godsp_tpu.fft.core import fft_real
-
-            spec = fft_real(frames)[..., :lp]
-            p = spec.real * spec.real + spec.imag * spec.imag
+        spec = fft_real(frames)[..., :lp]
+        p = spec.real * spec.real + spec.imag * spec.imag
         return p * mask[..., None]
 
     lead = x.ndim - 1
@@ -134,9 +122,8 @@ def spectrogram_sharded(
     total_frames = (L - nfft) // hop + 1
 
     w = _resolve_window(window, nfft, x.dtype)
-    w_pad = _fused_window(w, pad)
     p = _sharded_power_frames(
-        x, w_pad, mesh, nfft, hop, pad, frames_per_shard, total_frames
+        x, w, mesh, nfft, hop, pad, frames_per_shard, total_frames
     )
     return p[..., :total_frames, :]
 
@@ -151,8 +138,7 @@ def _sharded_ola(spec, w, mesh: Mesh, nfft: int, hop: int, pad: int,
     sharded over the frame axis -> (..., n_sp*fps*hop) time samples
     sharded over the time axis.
 
-    Each shard overlap-adds its own frames (the fused ISTFT kernel when
-    the geometry qualifies), then sends the (nfft - hop)-sample tail
+    Each shard overlap-adds its own frames, then sends the (nfft - hop)-sample tail
     that spills past its time block to the RIGHT neighbor with one
     ppermute — the synthesis twin of the analysis halo in
     _sharded_power_frames.  The NOLA denominator is assembled the same
@@ -164,10 +150,9 @@ def _sharded_ola(spec, w, mesh: Mesh, nfft: int, hop: int, pad: int,
     H = nfft - hop
     fdt = default_float()
     own_len = fps * hop
-    fused = _istft_fused_eligible(nfft, pad, hop)
 
     def shard_fn(spec_local):
-        y = _ola_unnorm(spec_local, w, nfft, hop, pad, onesided, fused)
+        y = _ola_unnorm(spec_local, w, nfft, hop, pad, onesided)
         sp_idx = jax.lax.axis_index("sp")
         if H > 0:
             recv = jax.lax.ppermute(

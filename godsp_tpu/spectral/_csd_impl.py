@@ -8,8 +8,8 @@ pairs of signals — the other half of standard spectral analysis:
                   pwelch (scipy.signal.csd-compatible with detrend off);
   coherence(x, y) Cxy = |Pxy|^2 / (Pxx * Pyy).
 
-Per-segment spectra ride the fused STFT kernel on TPU (complex output);
-averaging and normalization are tiny XLA ops.
+Per-segment spectra are batched framing + FFT; averaging and
+normalization are tiny XLA ops.
 """
 
 from __future__ import annotations
@@ -22,7 +22,9 @@ import jax.numpy as jnp
 from godsp_tpu import window as win
 from godsp_tpu._dtypes import as_real_array, default_float
 from godsp_tpu.dsputils.utils import zero_pad
+from godsp_tpu.fft.core import fft_real
 from godsp_tpu.spectral._pwelch_impl import PwelchOptions
+from godsp_tpu.spectral._segment_impl import segment
 
 __all__ = ["csd", "coherence"]
 
@@ -76,54 +78,11 @@ def csd(
     if enable_scaling:
         w_norm = w_norm * jnp.asarray(fs, dtype=fdt)
 
-    from godsp_tpu.spectral._pwelch_impl import fused_path_eligible
-
     doubler = jnp.ones(lp, dtype=fdt).at[1 : lp - 1].set(2.0)
-    total_segs = (x.shape[-1] - nfft) // stride + 1
-    if total_segs > 0 and fused_path_eligible(nfft, fft_len, stride):
-        # Fused cross-spectral kernel: both signals framed, transformed,
-        # and reduced entirely in VMEM (ops.pallas_csd).
-        from godsp_tpu.ops.pallas_csd import csd_power_partials
-        from godsp_tpu.ops.pallas_pwelch import digit_to_natural_bins
-
-        mask = jnp.ones(x.shape[:-1] + (total_segs,), jnp.float32)
-        re_p, im_p = csd_power_partials(
-            x, y, mask, w_pad, nfft, stride, pad=fft_len
-        )
-        re = digit_to_natural_bins(re_p.sum(axis=-2), fft_len)[..., :lp]
-        im = digit_to_natural_bins(im_p.sum(axis=-2), fft_len)[..., :lp]
-        pxy = jax.lax.complex(re, im) * doubler / (total_segs * w_norm)
-        freqs = jnp.arange(lp, dtype=fdt) * (fs / pad)
-        return pxy, freqs
-
-    from godsp_tpu.spectral._segment_impl import segment
-
-    if total_segs > 0 and fused_path_eligible(nfft, fft_len, nfft):
-        # Unsupported stride: frame in XLA, run the fused cross kernel on
-        # the frames as back-to-back (stride == nfft) streams.
-        from godsp_tpu.ops.pallas_csd import csd_power_partials
-        from godsp_tpu.ops.pallas_pwelch import digit_to_natural_bins
-
-        fx = segment(x, nfft, noverlap)
-        fy = segment(y, nfft, noverlap)
-        nsegs = fx.shape[-2]
-        flat_x = fx.reshape(*fx.shape[:-2], nsegs * nfft)
-        flat_y = fy.reshape(*fy.shape[:-2], nsegs * nfft)
-        mask = jnp.ones(flat_x.shape[:-1] + (nsegs,), jnp.float32)
-        re_p, im_p = csd_power_partials(
-            flat_x, flat_y, mask, w_pad, nfft, nfft, pad=fft_len
-        )
-        re = digit_to_natural_bins(re_p.sum(axis=-2), fft_len)[..., :lp]
-        im = digit_to_natural_bins(im_p.sum(axis=-2), fft_len)[..., :lp]
-        pxy = jax.lax.complex(re, im) * doubler / (nsegs * w_norm)
-        freqs = jnp.arange(lp, dtype=fdt) * (fs / pad)
-        return pxy, freqs
 
     def spectra(sig):
         frames = segment(sig, nfft, noverlap)
         padded = zero_pad(frames, fft_len) * w_pad
-        from godsp_tpu.fft.core import fft_real
-
         return fft_real(padded)[..., :lp]
 
     X = spectra(x)

@@ -40,18 +40,6 @@ from godsp_tpu.spectral._segment_impl import segment
 __all__ = ["PwelchOptions", "pwelch", "pwelch_from_frames", "periodogram"]
 
 
-def fused_path_eligible(nfft: int, pad: int, stride: int) -> bool:
-    """True when the fused Pallas kernel (ops.pallas_pwelch) serves this
-    geometry on the current backend; otherwise the batched-XLA path runs.
-    """
-    from godsp_tpu.ops.pallas_pwelch import fused_supported
-
-    return (
-        jax.default_backend() == "tpu"
-        and not jax.config.jax_enable_x64
-        and fused_supported(nfft, pad, stride)
-    )
-
 WindowSpec = Union[str, Callable[[int], jax.Array], None]
 
 
@@ -106,40 +94,8 @@ def pwelch(
     if x.shape[-1] < nfft:
         x = zero_pad(x, nfft)  # pwelch.go:97-99
 
-    stride = nfft - noverlap
-    # ZeroPadF(seg, pad) is a no-op when pad < nfft (dsputils.go:60-63):
-    # the FFT then runs at nfft and only the first pad/2+1 bins are kept.
-    fft_len = max(pad, nfft)
-    if stride > 0 and fused_path_eligible(nfft, fft_len, stride):
-        total_segs = (x.shape[-1] - nfft) // stride + 1  # spectral.go:26-33
-        return _pwelch_fused(
-            x, fs, nfft, wf, pad, fft_len, stride, total_segs, enable_scaling
-        )
-
     frames = segment(x, nfft, noverlap)  # (nsegs, nfft), pwelch.go:104
     return pwelch_from_frames(frames, fs, o)
-
-
-def _pwelch_fused(x, fs, nfft, wf, pad, fft_len, stride, total_segs,
-                  enable_scaling):
-    """Single-kernel Pwelch: frame->window->FFT->|.|^2->sum fused in VMEM
-    (ops.pallas_pwelch); numerics match pwelch_from_frames to f32."""
-    from godsp_tpu.ops.pallas_pwelch import pwelch_power_sum
-
-    fdt = x.dtype
-    lp = pad // 2 + 1
-    w_fft = win.window_table(wf, fft_len).astype(fdt)  # pwelch.go:108-109
-    w_nfft = win.window_table(wf, nfft).astype(fdt)
-    w_norm = jnp.sum(w_nfft * w_nfft)  # pwelch.go:124-128 (NFFT window)
-    if enable_scaling:
-        w_norm = w_norm * jnp.asarray(fs, dtype=fdt)  # pwelch.go:130-132
-
-    p = pwelch_power_sum(x, w_fft, nfft, stride, total_segs, pad=fft_len)
-    p = p[..., :lp]  # pad < nfft keeps the head bins (pwelch.go:101,113)
-    doubler = jnp.ones(lp, dtype=p.dtype).at[1 : lp - 1].set(2.0)
-    pxx = p * doubler / (total_segs * w_norm)  # pwelch.go:113-136
-    freqs = jnp.arange(lp, dtype=fdt) * (fs / pad)  # pwelch.go:138-142
-    return pxx, freqs
 
 
 @partial(jax.jit, static_argnames=("nfft", "fft_len", "lp"))
@@ -170,10 +126,6 @@ def pwelch_from_frames(
     mean-of-periodograms is associative, so per-shard partial means
     combine exactly (up to fp reordering) with a weighted psum
     (see godsp_tpu.parallel).
-
-    On TPU with kernel-supported sizes, the frames feed the fused Pallas
-    kernel as a back-to-back (stride == nfft) stream — the fused path for
-    ANY overlap geometry (framing already happened); otherwise batched XLA.
     """
     o = options or PwelchOptions()
     nfft, wf, pad, _, enable_scaling = o.resolved()
@@ -190,17 +142,7 @@ def pwelch_from_frames(
     if enable_scaling:
         w_norm = w_norm * jnp.asarray(fs, dtype=fdt)  # pwelch.go:130-132
 
-    nsegs = frames.shape[-2]
-    if nsegs > 0 and fused_path_eligible(nfft, fft_len, nfft):
-        from godsp_tpu.ops.pallas_pwelch import pwelch_power_sum
-
-        flat = frames.reshape(*frames.shape[:-2], nsegs * nfft)
-        p = pwelch_power_sum(flat, w_fft, nfft, nfft, nsegs, pad=fft_len)
-        p = p[..., :lp]
-        doubler = jnp.ones(lp, dtype=p.dtype).at[1 : lp - 1].set(2.0)
-        pxx = p * doubler / (nsegs * w_norm)
-    else:
-        pxx = _pwelch_core(frames, w_fft, w_norm, nfft, fft_len, lp)
+    pxx = _pwelch_core(frames, w_fft, w_norm, nfft, fft_len, lp)
     freqs = jnp.arange(lp, dtype=fdt) * (fs / pad)  # pwelch.go:138-142
     return pxx, freqs
 

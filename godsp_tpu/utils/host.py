@@ -1,34 +1,16 @@
-"""Device -> host materialization that is safe for complex arrays.
-
-Some TPU transports cannot transfer complex buffers directly (the whole
-computation runs fine; only the final host copy of a complexN array
-stalls).  `to_host` splits complex results into real/imaginary planes on
-the device, transfers the real buffers, and recombines on the host.  Real
-arrays pass straight through.
-"""
+"""Device -> host materialization."""
 
 from __future__ import annotations
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 
 __all__ = ["to_host"]
 
 
-@jax.jit
-def _split(x):
-    return jnp.real(x), jnp.imag(x)
-
-
 def to_host(x) -> np.ndarray:
-    """Materialize a (possibly complex) jax array as a numpy array."""
-    if isinstance(x, np.ndarray):
-        return x
-    x = jnp.asarray(x)
-    if x.dtype.kind != "c":
-        return np.asarray(x)
-    re, im = _split(x)
-    out = np.asarray(re).astype(np.complex128 if x.dtype == jnp.complex128 else np.complex64)
-    out += 1j * np.asarray(im)
-    return out
+    """Materialize a (possibly complex) jax array as a numpy array.
+
+    A plain np.asarray; kept as a named entry point for its many call
+    sites.  numpy inputs pass through unchanged.
+    """
+    return np.asarray(x)

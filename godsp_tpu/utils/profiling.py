@@ -11,12 +11,14 @@ TensorBoard/XProf without importing profiler plumbing everywhere:
 from __future__ import annotations
 
 import contextlib
+import glob
 import logging
-from typing import Iterator, Optional
+import os
+from typing import Iterable, Iterator, Optional
 
 import jax
 
-__all__ = ["trace_to", "annotate", "start_server"]
+__all__ = ["trace_to", "annotate", "start_server", "device_event_ms", "sum_device_events"]
 
 log = logging.getLogger("godsp_tpu.profiling")
 
@@ -48,3 +50,37 @@ def start_server(port: int = 9999) -> Optional[object]:
     except Exception as e:  # pragma: no cover - backend dependent
         log.warning("profiler server unavailable: %s", e)
         return None
+
+
+def sum_device_events(planes: Iterable, keys: Iterable[str]) -> dict:
+    """{device plane name: summed duration in ms} of the events whose name
+    contains any of keys (case-insensitive), over the planes of a
+    profiler trace whose name starts with "/device:" (host planes and
+    host threads are skipped)."""
+    keys = tuple(k.lower() for k in keys)
+    out = {}
+    for plane in planes:
+        if not plane.name.startswith("/device:"):
+            continue
+        ns = sum(
+            e.duration_ns
+            for line in plane.lines
+            for e in line.events
+            if any(k in e.name.lower() for k in keys)
+        )
+        out[plane.name] = out.get(plane.name, 0.0) + ns / 1e6
+    return out
+
+
+def device_event_ms(trace_dir: str, keys: Iterable[str]) -> dict:
+    """sum_device_events over every .xplane.pb that trace_to(trace_dir)
+    wrote; e.g. keys=("nccl",) gives each GPU's collective kernel time."""
+    from jax.profiler import ProfileData
+
+    keys = tuple(keys)
+    out = {}
+    pattern = os.path.join(trace_dir, "**", "*.xplane.pb")
+    for path in sorted(glob.glob(pattern, recursive=True)):
+        for dev, ms in sum_device_events(ProfileData.from_file(path).planes, keys).items():
+            out[dev] = out.get(dev, 0.0) + ms
+    return out

@@ -312,227 +312,34 @@ class TestDCT:
             fft.dct(np.ones(8, dtype=np.complex128))
 
 
-class TestLargeFFT:
-    """Large-N four-step over the kernel (fft/large.py): the structure
-    is validated here in float64 with the four-step oracle as the row
-    transform, and with interpret-mode Pallas kernels at a real
-    kernel-split size; the TPU path itself is exercised on hardware
-    (bench.py fft_2pow20)."""
+class TestFourStepLarge:
+    """Large single transforms through the four-step recursion (the one
+    power-of-2 route), float64 on the CPU against numpy."""
 
-    def _oracle_row(self, xr, xi, inverse):
-        from godsp_tpu.fft.four_step import four_step_fft
-
-        y = four_step_fft(jnp.asarray(xr) + 1j * jnp.asarray(xi), inverse)
-        return jnp.real(y), jnp.imag(y)
-
-    @pytest.mark.parametrize("n", [1 << 15, 1 << 16, 1 << 20, 1 << 21])
-    def test_structure_vs_numpy(self, n):
-        from godsp_tpu.fft.large import fft_large_split, large_supported
-
-        assert large_supported(n)
+    @pytest.mark.parametrize("log2n", range(15, 22))
+    def test_public_fft_vs_numpy(self, log2n):
+        n = 1 << log2n
         rng = np.random.default_rng(n)
         x = rng.normal(size=n) + 1j * rng.normal(size=n)
-        yr, yi = fft_large_split(
-            jnp.asarray(x.real), jnp.asarray(x.imag), row_fft=self._oracle_row
-        )
-        got = np.asarray(yr) + 1j * np.asarray(yi)
-        assert snr_db(got, np.fft.fft(x)) >= 200.0  # f64 structure-exact
+        got = np.asarray(fft.fft(x))
+        assert snr_db(got, np.fft.fft(x)) >= 200.0
 
-    def test_inverse_round_trip(self):
-        from godsp_tpu.fft.large import fft_large_split
-
+    def test_inverse_round_trip_batched(self):
         n = 1 << 15
         rng = np.random.default_rng(7)
         x = rng.normal(size=(2, n)) + 1j * rng.normal(size=(2, n))
-        yr, yi = fft_large_split(
-            jnp.asarray(x.real), jnp.asarray(x.imag), row_fft=self._oracle_row
-        )
-        zr, zi = fft_large_split(yr, yi, inverse=True, row_fft=self._oracle_row)
-        got = (np.asarray(zr) + 1j * np.asarray(zi)) / n
-        assert snr_db(got, x) >= 200.0
+        back = np.asarray(fft.ifft(fft.fft(x)))
+        assert snr_db(back, x) >= 200.0
 
-    def test_interpret_kernel_rows(self):
-        """Drive the real kernel (interpret mode) as the row transform:
-        n = 2^15 exercises the N1=2 einsum step plus a 16384-point kernel
-        row — the smallest true kernel-split integration."""
-        from godsp_tpu.fft import large
-        from godsp_tpu.ops.pallas_fft import fft_pow2_split
-
-        def krow(xr, xi, inverse):
-            return fft_pow2_split(
-                xr.astype(jnp.float32), xi.astype(jnp.float32),
-                inverse=inverse, interpret=True,
-            )
-
-        n = 1 << 15
-        rng = np.random.default_rng(3)
-        x = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
-        yr, yi = large.fft_large_split(
-            jnp.asarray(x.real), jnp.asarray(x.imag), row_fft=krow
-        )
-        got = np.asarray(yr) + 1j * np.asarray(yi)
-        assert snr_db(got, np.fft.fft(x.astype(np.complex128))) >= 110.0
-
-    def test_digit_path_interpret(self):
-        """The default (row_fft=None) path with its combined digit+final
-        transpose, via interpret-mode kernels."""
-        from godsp_tpu.fft.large import fft_large_split
-
-        n = 1 << 15
-        rng = np.random.default_rng(4)
-        x = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
-        yr, yi = fft_large_split(
-            jnp.asarray(x.real, jnp.float32), jnp.asarray(x.imag, jnp.float32),
-            interpret=True,
-        )
-        got = np.asarray(yr) + 1j * np.asarray(yi)
-        assert snr_db(got, np.fft.fft(x.astype(np.complex128))) >= 110.0
-
-    def test_outer_kernel_path_interpret(self):
-        """n > 2^20 (d2 > 1 plans) routes both outer levels through the
-        fused Pallas kernel (ops/pallas_outer.py) — validate the whole
-        pipeline (kernel levels + row FFT + combined fold) at the
-        smallest such size, 2^21 = 16 x 16 x 8192."""
-        from godsp_tpu.fft import large as lg
+    def test_multi_tone_closed_form(self):
+        """Integer-bin tones have an exact spectrum: the residual-form
+        SNR (utils.oracles) needs no reference transform."""
+        from godsp_tpu.utils.oracles import tone_signal, tone_snr_db
 
         n = 1 << 21
-        rng = np.random.default_rng(6)
-        x = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
-        assert lg._outer_kernel_on
-        try:
-            lg.set_peel_enabled(False)  # pin the two-level fused path
-            yr, yi = lg.fft_large_split(
-                jnp.asarray(x.real, jnp.float32),
-                jnp.asarray(x.imag, jnp.float32),
-                interpret=True,
-            )
-        finally:
-            lg.set_peel_enabled(True)
-        got = np.asarray(yr) + 1j * np.asarray(yi)
-        assert snr_db(got, np.fft.fft(x.astype(np.complex128))) >= 110.0
-
-    def test_outer_einsum_toggle_matches(self):
-        """set_outer_kernel_enabled(False) selects the einsum levels —
-        same transform (the f64/CPU fallback and the rows > _MAX_ROWS
-        path share it)."""
-        from godsp_tpu.fft import large as lg
-
-        n = 1 << 21
-        rng = np.random.default_rng(7)
-        x = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
-        xr = jnp.asarray(x.real, jnp.float32)
-        xi = jnp.asarray(x.imag, jnp.float32)
-        try:
-            lg.set_outer_kernel_enabled(False)
-            yr, yi = lg.fft_large_split(xr, xi, interpret=True)
-        finally:
-            lg.set_outer_kernel_enabled(True)
-        got = np.asarray(yr) + 1j * np.asarray(yi)
-        assert snr_db(got, np.fft.fft(x.astype(np.complex128))) >= 110.0
-
-    def test_recursive_outer_path_interpret(self, monkeypatch):
-        """rows > _MAX_ROWS peels the outer factor in TWO fused kernel
-        calls (recursive Cooley-Tukey; the 2^27/2^28 VMEM path) —
-        exercised at CPU size by shrinking _MAX_ROWS so 2^21's m = 256
-        takes the two-call branch (g = 16, m2 = 16), forward and
-        inverse."""
-        from godsp_tpu.fft import large as lg
-
-        monkeypatch.setattr(lg, "_MAX_ROWS", 16)
-        monkeypatch.setattr(lg, "_peel_on", False)  # pin the two-call path
-        n = 1 << 21
-        rng = np.random.default_rng(8)
-        x = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
-        xr = jnp.asarray(x.real, jnp.float32)
-        xi = jnp.asarray(x.imag, jnp.float32)
-        yr, yi = lg.fft_large_split(xr, xi, interpret=True)
-        got = np.asarray(yr) + 1j * np.asarray(yi)
-        assert snr_db(got, np.fft.fft(x.astype(np.complex128))) >= 110.0
-        zr, zi = lg.fft_large_split(yr, yi, inverse=True, interpret=True)
-        rt = (np.asarray(zr) + 1j * np.asarray(zi)) / n
-        assert snr_db(rt, x.astype(np.complex128)) >= 110.0
-
-    @pytest.mark.parametrize("fuse", [False, True])
-    @pytest.mark.parametrize("n", [1 << 17, 1 << 21])
-    def test_peel_path_interpret(self, n, fuse, monkeypatch):
-        """The 128-peel plan (round 5): single-level full-MXU-depth
-        outer contractions (outer_dft_split d2=1), then kernel rows —
-        whole pipeline including the fold axes, forward and inverse.
-        fuse=True exercises the fused last-peel + row-FFT kernel
-        (peel_rows_fused_split; default-off, kept as measured evidence —
-        2^21's n3=16384 falls back to the unfused path either way)."""
-        from godsp_tpu.fft import large as lg
-
-        assert lg._peel_on and lg._peel_plan(n) is not None
-        monkeypatch.setattr(lg, "_fuse_rows_on", fuse)
-        rng = np.random.default_rng(n)
-        x = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
-        xr = jnp.asarray(x.real, jnp.float32)
-        xi = jnp.asarray(x.imag, jnp.float32)
-        yr, yi = lg.fft_large_split(xr, xi, interpret=True)
-        got = np.asarray(yr) + 1j * np.asarray(yi)
-        assert snr_db(got, np.fft.fft(x.astype(np.complex128))) >= 110.0
-        zr, zi = lg.fft_large_split(yr, yi, inverse=True, interpret=True)
-        rt = (np.asarray(zr) + 1j * np.asarray(zi)) / n
-        assert snr_db(rt, x.astype(np.complex128)) >= 110.0
-
-    def test_two_peel_axes_composition(self):
-        """k=2 peels (the 2^24..2^28 shape class) at test scale: the
-        oracle row transform isolates the peel-axes fold composition
-        (bin k = k1 + 128 k2 + 128^2 k3)."""
-        from godsp_tpu.fft import large as lg
-
-        n = 1 << 24
-        assert lg._peel_plan(n) == ([128, 128], 1024)
-        rng = np.random.default_rng(42)
-        # multi-tone: exact bins keep the oracle comparison cheap
-        bins = rng.choice(n, size=5, replace=False)
-        amps = rng.normal(size=5) + 1j * rng.normal(size=5)
-        t = np.arange(n, dtype=np.float64)
-        x = np.zeros(n, np.complex128)
-        for bq, a in zip(bins, amps):
-            x += a * np.exp(2j * np.pi * bq * t / n)
-        xf = x.astype(np.complex64)
-
-        def oracle_row(xr, xi, inverse):
-            z = np.asarray(xr, np.float64) + 1j * np.asarray(xi, np.float64)
-            y = np.fft.ifft(z, axis=-1) * z.shape[-1] if inverse else (
-                np.fft.fft(z, axis=-1))
-            return jnp.asarray(y.real, jnp.float32), jnp.asarray(
-                y.imag, jnp.float32)
-
-        yr, yi = lg.fft_large_split(
-            jnp.asarray(xf.real, jnp.float32),
-            jnp.asarray(xf.imag, jnp.float32),
-            row_fft=oracle_row, interpret=True,
-        )
-        got = np.asarray(yr) + 1j * np.asarray(yi)
-        ref = np.zeros(n, np.complex128)
-        for bq, a in zip(bins, amps):
-            ref[bq] = a * n
-        assert snr_db(got, ref) >= 100.0
-
-    def test_unsupported_sizes(self):
-        from godsp_tpu.fft.large import large_supported
-
-        assert not large_supported(16384)  # single-kernel territory
-        assert not large_supported(3 * (1 << 15))  # not a power of 2
-        assert large_supported(1 << 28)
-        assert not large_supported(1 << 29)
-
-    def test_set_large_min_below_rows_stays_unsupported(self):
-        # Lowering _MIN_N under the row length must not admit sizes with
-        # no valid two-level factoring (n1 would be 0 and reshape crash).
-        from godsp_tpu.fft import large
-
-        prev = large._MIN_N
-        large.set_large_min(4096)
-        try:
-            assert not large.large_supported(4096)
-            assert not large.large_supported(8192)
-            assert large.large_supported(16384)
-        finally:
-            large.set_large_min(prev)
+        tones = [(3, 0.5, 0.1), (12345, 0.25, -0.3), ((n >> 1) + 7, 0.125, 0.7)]
+        got = np.asarray(fft.fft(tone_signal(n, tones)))
+        assert tone_snr_db(got, tones) >= 200.0
 
 
 class TestHelpers:

@@ -1,4 +1,4 @@
-"""Multi-chip tests on the virtual 8-device CPU mesh (SURVEY.md §4):
+"""Multi-device tests on the virtual 8-device CPU mesh (SURVEY.md §4):
 sharded Pwelch must equal single-device Pwelch within tolerance, halo
 logic included; streaming must equal one-shot on the same data."""
 
@@ -130,167 +130,6 @@ class TestStreaming:
         assert sp.metrics.segments_done > 0
         assert sp.metrics.wall_s > 0
         assert "msamples_per_s" in sp.metrics.json_line()
-
-
-class TestShardedFusedKernel:
-    """The fused Pallas branch of sharded_partial_step, forced on the CPU
-    mesh via interpret mode + an eligibility monkeypatch."""
-
-    def test_sharded_fused_matches_single_device(self, monkeypatch):
-        import importlib
-
-        from jax.experimental.pallas import tpu as pltpu
-
-        from godsp_tpu.ops import pallas_fft
-
-        spwelch = importlib.import_module("godsp_tpu.spectral._pwelch_impl")
-        # Lane-slice kernels hang under shard_map + interpret mode (see
-        # pallas_fft.set_laneslice_enabled); exercise the sharded data
-        # plumbing through the batched-3D structure.  monkeypatch (not
-        # set_laneslice_enabled) so the default is RESTORED on teardown.
-        monkeypatch.setattr(pallas_fft, "_ls_enabled", False)
-
-        opts = spectral.PwelchOptions(nfft=256, noverlap=128)
-        stride = 128
-        L = 8 * stride * 16
-        x = jnp.asarray(_signal(L), jnp.float32)
-        mesh = make_mesh(MeshConfig(dp=1, sp=8))
-
-        ref, _ = spectral.pwelch(x, 2.0, opts)  # XLA path (f32 input)
-
-        monkeypatch.setattr(
-            spwelch, "fused_path_eligible", lambda nfft, pad, stride: True
-        )
-        with pltpu.force_tpu_interpret_mode():
-            p_sh, _ = pwelch_sharded(x, 2.0, opts, mesh)
-        np.testing.assert_allclose(
-            np.asarray(p_sh), np.asarray(ref), rtol=2e-4, atol=1e-12
-        )
-
-    def test_sharded_fused_packed_half_pad_lt_nfft(self, monkeypatch):
-        """options.pad < nfft through the half-Hermitian sharded branch:
-        the packed one-sided row is pad_fft//2+1 bins wide but only the
-        first lp = options.pad//2+1 head bins are kept (ZeroPadF no-op
-        quirk, dsputils.go:60-63) — regression for the round-4 advisor's
-        shape-mismatch finding (packed row vs (lp,)-shaped doubler)."""
-        import importlib
-
-        from jax.experimental.pallas import tpu as pltpu
-
-        import godsp_tpu.parallel._pwelch_sharded_impl as impl
-
-        spwelch = importlib.import_module("godsp_tpu.spectral._pwelch_impl")
-
-        opts = spectral.PwelchOptions(nfft=256, noverlap=128, pad=128)
-        stride = 128
-        L = 8 * stride * 16
-        x = jnp.asarray(_signal(L), jnp.float32)
-        mesh = make_mesh(MeshConfig(dp=1, sp=8))
-
-        ref, _ = spectral.pwelch(x, 2.0, opts)  # XLA path (f32 input)
-        assert ref.shape[-1] == 128 // 2 + 1
-
-        monkeypatch.setattr(
-            spwelch, "fused_path_eligible", lambda nfft, pad, stride: True
-        )
-        monkeypatch.setattr(impl, "_resolve_packed_half", lambda fft_len: True)
-        with pltpu.force_tpu_interpret_mode():
-            p_sh, _ = pwelch_sharded(x, 2.0, opts, mesh)
-        np.testing.assert_allclose(
-            np.asarray(p_sh), np.asarray(ref), rtol=2e-4, atol=1e-12
-        )
-
-    def test_packed_half_toggle_invalidates_cache(self, monkeypatch):
-        """set_packed_half_enabled must reach already-traced geometries:
-        the flag is a static jit arg resolved per call, not a module
-        global read at trace time (round-4 advisor low finding)."""
-        from godsp_tpu.ops import pallas_pwelch
-        from godsp_tpu.parallel._pwelch_sharded_impl import _resolve_packed_half
-
-        fft_len = 1024
-        monkeypatch.setattr(
-            "godsp_tpu.ops.pallas_fft.rfft_supported_size", lambda n: True
-        )
-        pallas_pwelch.set_packed_half_enabled(True)
-        assert _resolve_packed_half(fft_len) is True
-        try:
-            pallas_pwelch.set_packed_half_enabled(False)
-            assert _resolve_packed_half(fft_len) is False
-        finally:
-            pallas_pwelch.set_packed_half_enabled(True)
-
-
-class TestPallasHalo:
-    """parallel/halo.py: the remote-DMA ring must match ppermute exactly.
-
-    Interpret-mode RDMA emulation only supports single-named-axis meshes
-    (dma_start discharge limitation), so the ring kernel is validated on
-    an ("sp",)-only mesh; multi-axis addressing uses DeviceIdType.MESH,
-    which the compiled TPU path supports.
-    """
-
-    def test_ring_matches_ppermute(self):
-        from jax.sharding import Mesh, PartitionSpec as P
-
-        from godsp_tpu.parallel import ring_halo_pallas
-
-        n_sp, L, H = 8, 512, 96
-        mesh = Mesh(np.array(jax.devices()[:n_sp]), ("sp",))
-        x = jnp.asarray(
-            np.random.default_rng(0).normal(size=n_sp * L).astype(np.float32)
-        )
-
-        def via_pallas(x_local):
-            return ring_halo_pallas(x_local, H, n_sp, has_dp=False, interpret=True)
-
-        def via_ppermute(x_local):
-            return jax.lax.ppermute(
-                x_local[..., :H], "sp",
-                perm=[(i, (i - 1) % n_sp) for i in range(n_sp)],
-            )
-
-        sm = lambda f: jax.jit(
-            jax.shard_map(
-                f, mesh=mesh, in_specs=P("sp"), out_specs=P("sp"),
-                check_vma=False,
-            )
-        )
-        got = np.asarray(sm(via_pallas)(x))
-        ref = np.asarray(sm(via_ppermute)(x))
-        np.testing.assert_array_equal(got, ref)
-
-    def test_ring_batched_rows(self):
-        from jax.sharding import Mesh, PartitionSpec as P
-
-        from godsp_tpu.parallel import ring_halo_pallas
-
-        n_sp, L, H, B = 4, 256, 128, 3
-        mesh = Mesh(np.array(jax.devices()[:n_sp]), ("sp",))
-        x = jnp.asarray(
-            np.random.default_rng(1).normal(size=(B, n_sp * L)).astype(np.float32)
-        )
-
-        sm = lambda f: jax.jit(
-            jax.shard_map(
-                f, mesh=mesh, in_specs=P(None, "sp"),
-                out_specs=P(None, "sp"), check_vma=False,
-            )
-        )
-        got = np.asarray(
-            sm(lambda xl: ring_halo_pallas(xl, H, n_sp, has_dp=False, interpret=True))(x)
-        )
-        xs = np.asarray(x)
-        for i in range(n_sp):
-            right = (i + 1) % n_sp
-            np.testing.assert_array_equal(
-                got[:, i * H : (i + 1) * H], xs[:, right * L : right * L + H]
-            )
-
-    def test_zero_halo(self):
-        from godsp_tpu.parallel import ring_halo_pallas
-
-        out = ring_halo_pallas(jnp.ones((2, 64)), 0, 4)
-        assert out.shape == (2, 0)
 
 
 class TestShardedFFT:
@@ -537,135 +376,6 @@ class TestShardedISTFT:
                           pad=256)
 
 
-class TestFusedHalo:
-    """parallel/fused_halo.py: halo RDMA fused into the Pwelch kernel.
-
-    Interpret-mode RDMA needs a single-named-axis mesh (dma_start
-    discharge limitation), and the lane-slice FFT structure is disabled
-    under shard_map + interpret (see pallas_fft.set_laneslice_enabled).
-    """
-
-    def test_fused_halo_matches_ppermute(self, monkeypatch):
-        import importlib
-
-        import jax
-        from jax.sharding import Mesh
-
-        from godsp_tpu.ops import pallas_fft
-        from godsp_tpu.parallel import pwelch_sharded
-
-        monkeypatch.setattr(pallas_fft, "_ls_enabled", False)
-        spwelch = importlib.import_module("godsp_tpu.spectral._pwelch_impl")
-
-        opts = spectral.PwelchOptions(nfft=256, noverlap=128)
-        stride = 128
-        L = 8 * stride * 16  # 16 segments per shard (divisible by 8)
-        x = jnp.asarray(_signal(L), jnp.float32)
-        mesh = Mesh(np.array(jax.devices()[:8]), ("sp",))
-
-        ref, _ = spectral.pwelch(x, 2.0, opts)  # XLA oracle
-        monkeypatch.setattr(
-            spwelch, "fused_path_eligible", lambda nfft, pad, stride: True
-        )
-
-        p_fused, _ = pwelch_sharded(
-            x, 2.0, opts, mesh=mesh, halo_impl=("fused", True)
-        )
-        np.testing.assert_allclose(
-            np.asarray(p_fused), np.asarray(ref), rtol=2e-4, atol=1e-12
-        )
-
-        # And bit-match against the ppermute + fused-kernel path.
-        from jax.experimental.pallas import tpu as pltpu
-
-        with pltpu.force_tpu_interpret_mode():
-            p_pp, _ = pwelch_sharded(
-                x, 2.0, opts, mesh=mesh, halo_impl=("ppermute", False)
-            )
-        np.testing.assert_allclose(
-            np.asarray(p_fused), np.asarray(p_pp), rtol=1e-6
-        )
-
-    def test_fused_halo_multichannel(self, monkeypatch):
-        """Batched leading axis through the RDMA kernel: every channel's
-        head travels in ONE remote copy; per-channel results must match
-        the single-channel fused path bit-for-bit."""
-        import importlib
-
-        import jax
-        from jax.sharding import Mesh
-
-        from godsp_tpu.ops import pallas_fft
-        from godsp_tpu.parallel import pwelch_sharded
-
-        monkeypatch.setattr(pallas_fft, "_ls_enabled", False)
-        spwelch = importlib.import_module("godsp_tpu.spectral._pwelch_impl")
-
-        opts = spectral.PwelchOptions(nfft=256, noverlap=128)
-        stride = 128
-        L = 8 * stride * 16
-        C = 3
-        x = jnp.stack(
-            [jnp.asarray(_signal(L, seed=20 + c), jnp.float32) for c in range(C)]
-        )
-        mesh = Mesh(np.array(jax.devices()[:8]), ("sp",))
-        refs = [np.asarray(spectral.pwelch(x[c], 2.0, opts)[0]) for c in range(C)]
-        monkeypatch.setattr(
-            spwelch, "fused_path_eligible", lambda nfft, pad, stride: True
-        )
-
-        p_multi, _ = pwelch_sharded(
-            x, 2.0, opts, mesh=mesh, halo_impl=("fused", True)
-        )
-        assert p_multi.shape[0] == C
-        for c in range(C):
-            # Same kernel math per channel; tolerance only for the HLO
-            # interpreter's fusion-dependent LSBs.
-            p_one, _ = pwelch_sharded(
-                x[c], 2.0, opts, mesh=mesh, halo_impl=("fused", True)
-            )
-            np.testing.assert_allclose(
-                np.asarray(p_multi[c]), np.asarray(p_one), rtol=1e-6
-            )
-        # And against the XLA oracle.
-        for c in range(C):
-            np.testing.assert_allclose(
-                np.asarray(p_multi[c]), refs[c], rtol=2e-4, atol=1e-12
-            )
-
-    def test_fused_halo_global_tail_mask(self, monkeypatch):
-        """Ring-wrap garbage on the last shard must be masked out: use a
-        geometry where the final segments are globally invalid."""
-        import importlib
-
-        import jax
-        from jax.sharding import Mesh
-
-        from godsp_tpu.ops import pallas_fft
-        from godsp_tpu.parallel import pwelch_sharded
-
-        monkeypatch.setattr(pallas_fft, "_ls_enabled", False)
-        spwelch = importlib.import_module("godsp_tpu.spectral._pwelch_impl")
-
-        # noverlap > 0 makes the last shard's final segment straddle the
-        # global end: it must be masked, not filled with wrapped data.
-        opts = spectral.PwelchOptions(nfft=512, noverlap=384)
-        stride = 128
-        L = 8 * stride * 8
-        x = jnp.asarray(_signal(L, seed=5), jnp.float32)
-        mesh = Mesh(np.array(jax.devices()[:8]), ("sp",))
-        ref, _ = spectral.pwelch(x, 2.0, opts)
-        monkeypatch.setattr(
-            spwelch, "fused_path_eligible", lambda nfft, pad, stride: True
-        )
-        p_fused, _ = pwelch_sharded(
-            x, 2.0, opts, mesh=mesh, halo_impl=("fused", True)
-        )
-        np.testing.assert_allclose(
-            np.asarray(p_fused), np.asarray(ref), rtol=2e-4, atol=1e-12
-        )
-
-
 class TestStreamingPadLtNfft:
     def test_stream_pad_lt_nfft(self):
         """Streaming reproduces the pad < nfft head-bins semantics."""
@@ -683,71 +393,53 @@ class TestStreamingPadLtNfft:
         np.testing.assert_allclose(freqs, np.asarray(ref_f))
 
 
-class TestStreamingFusedHalo:
-    def test_stream_fused_halo_matches_oneshot(self, monkeypatch):
-        """Streaming with the in-kernel RDMA halo: the next-chunk tail is
-        injected for the last shard, so chunk boundaries stay exact."""
-        import importlib
+class TestPpermuteHaloGeometries:
+    """The halo geometries the removed in-kernel halo copy was tested
+    at, through the ppermute halo that is now the only one."""
 
-        from jax.sharding import Mesh
+    def test_multichannel_sp_only(self):
+        opts = spectral.PwelchOptions(nfft=256, noverlap=128)
+        L = 8 * 128 * 16
+        x = np.stack([_signal(L, seed=20 + c) for c in range(3)])
+        mesh = make_mesh(MeshConfig(dp=1, sp=8))
+        p, _ = pwelch_sharded(jnp.asarray(x), 2.0, opts, mesh)
+        assert p.shape == (3, 129)
+        for c in range(3):
+            ref, _ = spectral.pwelch(jnp.asarray(x[c]), 2.0, opts)
+            np.testing.assert_allclose(np.asarray(p[c]), np.asarray(ref), rtol=1e-10)
 
-        from godsp_tpu.ops import pallas_fft
-        from godsp_tpu.parallel.streaming import stream_pwelch as spw
+    def test_global_tail_mask(self):
+        """noverlap > stride: the last shard's final segments straddle
+        the global end and must be masked, not filled from the ring."""
+        opts = spectral.PwelchOptions(nfft=512, noverlap=384)
+        x = jnp.asarray(_signal(8 * 128 * 8, seed=5))
+        mesh = make_mesh(MeshConfig(dp=1, sp=8))
+        p, _ = pwelch_sharded(x, 2.0, opts, mesh)
+        ref, _ = spectral.pwelch(x, 2.0, opts)
+        np.testing.assert_allclose(np.asarray(p), np.asarray(ref), rtol=1e-10)
 
-        monkeypatch.setattr(pallas_fft, "_ls_enabled", False)
-        spwelch = importlib.import_module("godsp_tpu.spectral._pwelch_impl")
-
+    def test_stream_chunks_and_ragged_remainder(self):
         opts = spectral.PwelchOptions(nfft=256, noverlap=128)
         L = 8 * 128 * 16 * 3 + 7000  # three chunks + ragged remainder
         x = _signal(L, seed=13)
-        mesh = Mesh(np.array(jax.devices()[:8]), ("sp",))
+        mesh = make_mesh(MeshConfig(dp=1, sp=8))
+        pxx, _ = stream_pwelch([x[i : i + 9001] for i in range(0, L, 9001)],
+                               2.0, opts, mesh, segs_per_chunk_shard=16)
         ref, _ = spectral.pwelch(jnp.asarray(x), 2.0, opts)
-        monkeypatch.setattr(
-            spwelch, "fused_path_eligible", lambda nfft, pad, stride: True
-        )
-        pxx, _ = spw(
-            [x[i : i + 9001] for i in range(0, L, 9001)],
-            2.0, opts, mesh, segs_per_chunk_shard=16,
-            halo_impl=("fused", True),
-        )
-        np.testing.assert_allclose(pxx, np.asarray(ref), rtol=2e-4, atol=1e-12)
+        np.testing.assert_allclose(pxx, np.asarray(ref), rtol=1e-9)
 
-    def test_stream_fused_halo_multichannel(self, monkeypatch):
-        """Stereo streaming through the batched RDMA kernel (channels as
-        kernel grid rows on an sp-only mesh)."""
-        import importlib
-
-        from jax.sharding import Mesh
-
-        from godsp_tpu.ops import pallas_fft
-        from godsp_tpu.parallel.streaming import StreamingPwelch
-
-        monkeypatch.setattr(pallas_fft, "_ls_enabled", False)
-        spwelch = importlib.import_module("godsp_tpu.spectral._pwelch_impl")
-
+    def test_stream_stereo_sp_only(self):
         opts = spectral.PwelchOptions(nfft=256, noverlap=128)
         L = 8 * 128 * 16 * 2 + 5000
         xs = np.stack([_signal(L, seed=31), _signal(L, seed=32)])
-        mesh = Mesh(np.array(jax.devices()[:8]), ("sp",))
-        refs = [
-            np.asarray(spectral.pwelch(jnp.asarray(xs[c]), 2.0, opts)[0])
-            for c in range(2)
-        ]
-        monkeypatch.setattr(
-            spwelch, "fused_path_eligible", lambda nfft, pad, stride: True
-        )
-        sp = StreamingPwelch(
-            2.0, opts, mesh, segs_per_chunk_shard=16, channels=2,
-            halo_impl=("fused", True),
-        )
+        mesh = make_mesh(MeshConfig(dp=1, sp=8))
+        sp = StreamingPwelch(2.0, opts, mesh, segs_per_chunk_shard=16, channels=2)
         for i in range(0, L, 9001):
             sp.update(xs[:, i : i + 9001])
         pxx, _ = sp.finalize()
-        assert pxx.shape[0] == 2
         for c in range(2):
-            np.testing.assert_allclose(
-                pxx[c], refs[c], rtol=2e-4, atol=1e-12
-            )
+            ref, _ = spectral.pwelch(jnp.asarray(xs[c]), 2.0, opts)
+            np.testing.assert_allclose(pxx[c], np.asarray(ref), rtol=1e-9)
 
 
 class TestSharded2DConvolution:

@@ -306,28 +306,6 @@ class TestPeriodogram:
         assert pxx.shape == (0,)
 
 
-def test_csd_semi_fused_odd_stride(monkeypatch):
-    """Odd-stride csd routes through the frames-stream fused form."""
-    import importlib
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    from godsp_tpu.dsputils import snr_db
-
-    spwelch = importlib.import_module("godsp_tpu.spectral._pwelch_impl")
-    rng = np.random.default_rng(70)
-    opts = spectral.PwelchOptions(nfft=256, noverlap=100)  # stride 156
-    x = rng.normal(size=8000).astype(np.float32)
-    y = (0.5 * x + rng.normal(size=8000)).astype(np.float32)
-    ref, _ = spectral.csd(x, y, 2.0, opts)  # generic path
-    monkeypatch.setattr(
-        spwelch, "fused_path_eligible", lambda nf, pd, st: st == nf
-    )
-    with pltpu.force_tpu_interpret_mode():
-        got, _ = spectral.csd(x, y, 2.0, opts)
-    assert snr_db(np.asarray(got), np.asarray(ref)) >= 95.0
-
-
 class TestCsdPadLtNfft:
     def test_csd_pad_lt_nfft_matches_pwelch(self):
         """csd(x, x) == pwelch(x) must hold for pad < nfft too (the
